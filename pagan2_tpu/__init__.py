@@ -1,10 +1,10 @@
-"""pagan2_tpu — a TPU-native phylogeny-aware multiple sequence alignment
-framework (JAX/XLA/Pallas) with the capabilities of PAGAN2.
+"""pagan2_tpu — a phylogeny-aware multiple sequence alignment framework
+(JAX/XLA, with CUDA kernels for the GPU) with the capabilities of PAGAN2.
 
 Layers:
   models/    alphabets, substitution models, per-branch score tables
   graph/     partial-order sequence graphs as fixed-width arrays
-  align/     pairwise graph-vs-graph Viterbi DP (oracle + JAX + Pallas)
+  align/     pairwise graph-vs-graph Viterbi DP (oracle + JAX + CUDA)
   tree/      Newick parsing, guide-tree scheduling
   pipeline/  progressive alignment, pileup, query placement
   io/        FASTA/FASTQ/phylip/nexus/xml/graph readers and writers

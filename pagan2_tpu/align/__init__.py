@@ -182,6 +182,8 @@ def align_pair(left, right, model, settings=None, left_branch_length=0.0,
                                    sample_path_planes)
             planes = FullProbPlanes(left, right, model, settings,
                                     fanin=not linear_pair)
+            from .backend import count_fill
+            count_fill("fullprob")
             if plots.posterior_sink_active():
                 plots.add_posterior_figure_planes(planes)
             if settings.sample_path:

@@ -1,6 +1,6 @@
 """Anchor discovery and DP tunnel (band) construction.
 
-TPU-native replacements for the reference's anchoring stack
+Replacements for the reference's anchoring stack
 (src/utils/find_anchors.cpp, src/utils/ncbi_blast.cpp):
 
 * prefix anchors — exact transliteration of the suffix-sort shared-prefix

@@ -5,7 +5,7 @@ This is a literal (slow, loop-based) transliteration of
 Viterbi_alignment::align (src/main/viterbi_alignment.cpp:187-465) with the
 exact candidate evaluation order and strict-greater first-wins tie-breaks
 (basic_alignment.h:449-462). It is the ground-truth oracle the vectorized
-JAX / Pallas kernels are tested against, and the fallback engine for tiny
+JAX / CUDA kernels are tested against, and the fallback engine for tiny
 problems.
 
 Scores are float64; model parameters arrive float32-rounded from

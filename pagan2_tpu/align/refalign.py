@@ -11,7 +11,7 @@ decides which child sites become skipped at the ancestor. The ancestral
 graph is then built by the shared machinery (ancestral.py).
 
 Host-side by design: reading a reference alignment is a linear-time
-ingest step, not a DP hot path; the TPU kernels are for the O(L*R) fills.
+ingest step, not a DP hot path; the device kernels are for the O(L*R) fills.
 """
 from __future__ import annotations
 

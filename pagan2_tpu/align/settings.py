@@ -88,7 +88,7 @@ class AlignSettings:
         (pileup / placement): the reference anchors EVERY pair
         (node.cpp:87-152) and the engine's global anchor_min_sites
         default assumes cheap linear cells, but read-vs-root fills hit
-        deep-fan-in scan cells ~20x dearer. Applied only when the
+        deep-fan-in cells that cost many times more. Applied only when the
         caller left the default — an explicit user AlignSettings value
         wins over the pipeline's gate."""
         if self.anchor_min_sites == AlignSettings().anchor_min_sites:

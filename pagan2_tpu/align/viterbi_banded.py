@@ -5,12 +5,13 @@ every anti-diagonal form one contiguous window. This kernel carries only
 that window (width = max band width, bucketed) across the diagonal scan:
 HBM holds the int8 backpointer stripe (D x W) and O(L) vectors — a
 100-500 kb anchored pair fits in bounded memory, which is the
-reference's Tunnel_matrix story (tunnel_matrix.h:45-152) done the TPU
-way (the band rides the wavefront instead of per-row slices).
+reference's Tunnel_matrix story (tunnel_matrix.h:45-152) done the
+wavefront way (the band rides the wavefront instead of per-row slices).
 
 Match scores are built in-scan from the state vectors with a one-hot
 contraction, so no O(L*R) table exists anywhere. DNA's 15-state
-alphabet costs ~30 VPU ops/cell; larger alphabets pay proportionally.
+alphabet costs ~30 element-wise ops/cell; larger alphabets pay
+proportionally.
 """
 from __future__ import annotations
 
@@ -33,8 +34,7 @@ NEG = -np.inf
 def band_schedule(upper: np.ndarray, lower: np.ndarray, L: int, R: int):
     """Per-diagonal window start ilo[d] and in-band width w[d] from
     monotone tunnel bounds — THE shared schedule derivation (the
-    windowed scan cores and the banded pallas kernel both consume it;
-    two drifting copies hid the --force-gap monotonicity bug in r4).
+    windowed scan cores and the Hopper band fill both consume it).
 
     A[i] = i + upper[i] and B[i] = i + lower[i] are non-decreasing, so
     ilo(d) = first i with B[i] >= d and ihi(d) = last i with A[i] <= d
@@ -278,8 +278,7 @@ def banded_fill_args(left: SequenceGraph, right: SequenceGraph,
     W = _bucket(Wreal)
     D = L + R - 1
     # bucket every length-dependent dimension so the jitted core is
-    # reused across pairs (a fresh 400k-step scan costs ~80 s to
-    # compile; bucket slop steps are masked no-ops)
+    # reused across pairs (bucket slop steps are masked no-ops)
     Db = _bucket(D)
     Lb = _bucket(L)
 
@@ -339,35 +338,35 @@ def banded_align_path(left: SequenceGraph, right: SequenceGraph,
     the full masked kernel if the band cannot reach the end corner
     (viterbi_alignment.cpp:298-317).
 
-    On an accelerator backend the fill runs in the windowed-band Pallas
-    kernel (viterbi_pallas_banded) — the lax.scan core below issues one
-    tiny step per diagonal and is dispatch-bound there (~200x slower on
-    TPU v5e at 32 kb)."""
+    The fill is the windowed scan core below or, on a GPU, the Hopper
+    kernel over the same window schedule (backend.fill_impl)."""
     from .viterbi_jax import _backtrack_arrays
-    from . import viterbi_pallas_banded as vpb
+    from .backend import fill_impl, count_fill, KERNEL
 
-    if vpb.INTERPRET or jax.default_backend() != "cpu":
-        try:
-            return vpb.pallas_banded_align_path(
-                left, right, model, settings, upper, lower,
-                left_branch_length, right_branch_length)
-        except Exception as e:       # pragma: no cover - defensive
-            from ..utils import log_out
-            log_out("pallas banded fill failed (%s: %s); using the "
-                    "scan core" % (e.__class__.__name__, e), 1)
+    L = left.num_sites() - 1
+    R = right.num_sites() - 1
+    if fill_impl("band") == KERNEL:
+        from .hopper import linear_job, linear_fill, window_rows
+        ilo, w = band_schedule(upper, lower, L, R)
+        job = linear_job(left, right, model, settings, L, R,
+                         band=(upper, lower))
+        bp, final = linear_fill([job], L + R - 1, window_rows(w),
+                                ilo=ilo)
+        bp, final = bp[0], final[0]
+        count_fill(KERNEL)
+    else:
+        core, args, ilo, _inp = banded_fill_args(
+            left, right, model, settings, upper, lower, dtype)
+        bp, final = core(*args)
+        final = np.asarray(final)
+        count_fill("scan")
 
-    core, args, ilo, inp = banded_fill_args(left, right, model, settings,
-                                            upper, lower, dtype)
-    bp, final = core(*args)
-
-    final = np.asarray(final)
     if not np.isfinite(final).any():
         from .viterbi_sheared import sheared_align_path
         return sheared_align_path(left, right, model, settings,
                                   left_branch_length, right_branch_length,
                                   dtype=dtype)
 
-    L, R = inp["L"], inp["R"]
     cells = _BandedCells(bp, ilo, left, right)
     end = _end_corner_linear(final, left, right, model, L, R)
     end.bwd_score = 1.0

@@ -43,7 +43,7 @@ HALO = 32
 
 def _lane_split(L: int, n_dev: int) -> int:
     """Owned lanes per device: bucketed total split evenly, kept a
-    multiple of 8 so shards stay sublane-aligned."""
+    multiple of 8."""
     W = _bucket(L)
     w = -(-W // n_dev)
     return -(-w // 8) * 8

@@ -5,7 +5,7 @@ back-edge to its predecessor — true for all leaf sequences outside
 454/homopolymer mode and for most ancestors), the graph DP collapses to
 a classic 3-state affine recurrence. This kernel stores diagonals as
 vectors ("shearing" the DP plane) so one `lax.scan` step updates a whole
-anti-diagonal with pure element-wise VPU ops — no gathers in the loop.
+anti-diagonal with pure element-wise ops — no gathers in the loop.
 Backpointers pack into one int8 per cell (2 bits per matrix).
 
 Candidate evaluation order matches the reference exactly
@@ -43,8 +43,7 @@ def is_linear_chain(g: SequenceGraph) -> bool:
 def batched_sheared_core(ms_sh, gj_rext, orp_rext, rw_rext, gext_i, open_l,
                          lw, lng, lgo, Ldp, Rdp, band_lo, band_hi):
     """Batch-native fill in sheared layout (no vmap: a hand-batched scan
-    keeps the loop body a handful of large element-wise ops, which the
-    TPU pipeliner handles far better than a vmapped scan).
+    keeps the loop body a handful of large element-wise ops).
 
     ms_sh is (B, D, Lp): anti-diagonal rows of the match-score tables.
     gj_rext/orp_rext/rw_rext are column-indexed vectors (gap-ext by j,
@@ -182,14 +181,20 @@ def _shear(vals_2d, D):
 
 def _shear_np(vals_2d: np.ndarray, D: int) -> np.ndarray:
     """Numpy twin of _shear for host-side batch prep (keeps per-job prep
-    off the device so stacking a generation's jobs is one transfer)."""
+    off the device so stacking a generation's jobs is one transfer).
+    Row i of the result is three contiguous copies (vals[i, 0] before
+    the row's first diagonal, the row, zeros after), so the cost is one
+    pass over the output with no O(L x D) index arrays."""
     L, R = vals_2d.shape
-    ext = np.concatenate(
-        [vals_2d, np.zeros((L, 1), vals_2d.dtype)], axis=1)
-    d_idx = np.arange(D)[None, :] - np.arange(L)[:, None]
-    idx = np.clip(d_idx, 0, R)
+    out = np.empty((L, D), vals_2d.dtype)
+    for i in range(L):
+        lo = min(i, D)
+        hi = min(i + R, D)
+        out[i, :lo] = vals_2d[i, 0]
+        out[i, lo:hi] = vals_2d[i, :hi - lo]
+        out[i, hi:] = 0
     # the .T view is fine: downstream np.stack copies exactly once
-    return np.take_along_axis(ext, idx, axis=1).T
+    return out.T
 
 
 def _shear_vec(vec, D, L):
@@ -441,48 +446,45 @@ def sheared_align_path(left: SequenceGraph, right: SequenceGraph,
     full matrix is recomputed (the reference's anchored-DP fallback,
     viterbi_alignment.cpp:298-317).
 
-    Accelerator backends take the unrolled pallas kernel (the scan core
-    below issues one tiny step per diagonal and round-trips HBM there —
-    milli-GCUPS on TPU regardless of shape); the scan stays for CPU."""
+    The fill is the scan core below or, on a GPU, the Hopper kernel
+    (backend.fill_impl); both give the same backpointer plane."""
     from .viterbi_jax import _backtrack_arrays
-    from . import viterbi_pallas as vp
+    from .backend import fill_impl, count_fill, KERNEL
 
-    # pair-end break penalties are positional on the j side; the pallas
-    # kernel reconstructs j-side penalties from scalars, so those runs
-    # keep the vector scan core
-    if (vp.INTERPRET or jax.default_backend() != "cpu") \
-            and not settings.pair_end_reads:
-        try:
-            return vp.pallas_align_path(left, right, model, settings,
-                                        left_branch_length,
-                                        right_branch_length, band=band)
-        except Exception as e:       # pragma: no cover - defensive
-            from ..utils import log_out
-            log_out("pallas linear fill failed (%s: %s); using the "
-                    "scan core" % (e.__class__.__name__, e), 1)
+    L = left.num_sites() - 1
+    R = right.num_sites() - 1
+    Lp, Rp = _bucket(L), _bucket(R)
+    if fill_impl("linear") == KERNEL:
+        from .hopper import linear_job, linear_fill
 
-    inp = prepare_sheared(left, right, model, settings, dtype)
-    upper = band[0] if band else None
-    lower = band[1] if band else None
-    args = shear_device_inputs(inp, Lp=_bucket(inp["L"]),
-                               Rp=_bucket(inp["R"]),
-                               upper=upper, lower=lower)
-    bp, final = sheared_fill(*args)
-    final = np.asarray(final)
+        def fill(bnd):
+            job = linear_job(left, right, model, settings, Lp, Rp,
+                             band=bnd)
+            bp, fin = linear_fill([job], Lp + Rp - 1, Lp)
+            return bp[0], fin[0]
+        impl = KERNEL
+    else:
+        inp = prepare_sheared(left, right, model, settings, dtype)
 
+        def fill(bnd):
+            args = shear_device_inputs(
+                inp, Lp=Lp, Rp=Rp, upper=bnd[0] if bnd else None,
+                lower=bnd[1] if bnd else None)
+            bp, final = sheared_fill(*args)
+            return bp, np.asarray(final)
+        impl = "scan"
+
+    bp, final = fill(band)
+    count_fill(impl)
     if band is not None and not np.isfinite(final).any():
         # anchored alignment failed: retry with the full matrix
-        args = shear_device_inputs(inp, Lp=_bucket(inp["L"]),
-                                   Rp=_bucket(inp["R"]))
-        bp, final = sheared_fill(*args)
-        final = np.asarray(final)
+        bp, final = fill(None)
+        count_fill(impl)
 
     cells = _ShearedCells(bp, left, right)
-    end = _end_corner_linear(final, left, right, model,
-                             inp["L"], inp["R"])
+    end = _end_corner_linear(final, left, right, model, L, R)
     end.bwd_score = 1.0
     end.full_score = 1.0
-    path = _backtrack_arrays(cells, left, right, PathPtr(end, True),
-                             inp["L"], inp["R"],
+    path = _backtrack_arrays(cells, left, right, PathPtr(end, True), L, R,
                              left_branch_length, right_branch_length)
     return path, end

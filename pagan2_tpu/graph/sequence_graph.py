@@ -1,6 +1,6 @@
 """Partial-order sequence graphs as structure-of-arrays.
 
-TPU-native data model equivalent of the reference's Sequence/Site/Edge
+Array data model equivalent of the reference's Sequence/Site/Edge
 (src/main/sequence.h:28-1004). Sites live in index order start..stop;
 edges are kept in one growing SoA with per-site *ordered* adjacency lists
 (insertion order is semantically meaningful: the DP's tie-breaking visits

@@ -1,6 +1,6 @@
 """Alphabets and parsimony tables for DNA / protein / codon data.
 
-TPU-native reimplementation of the alphabet layer of PAGAN2
+Reimplementation of the alphabet layer of PAGAN2
 (reference: src/utils/model_factory.cpp:120-299 for DNA,
 :304-665 for protein, :839-1100 for codons). All tables are dense
 numpy arrays so they can be shipped to device as gather tables.

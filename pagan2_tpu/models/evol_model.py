@@ -1,6 +1,6 @@
 """Per-branch-length substitution/indel model bundle.
 
-TPU-native equivalent of the reference's Model_factory / Evol_model pair
+Equivalent of the reference's Model_factory / Evol_model pair
 (src/utils/model_factory.cpp:1871-2229, src/utils/evol_model.h:70-91).
 A ModelFactory is built once per data type; ``alignment_model(distance)``
 produces the dense score tables for one branch length.

@@ -67,12 +67,6 @@ def get_lib():
         p64, i64]
     lib.p2n_maxmin_subsample.restype = None
     lib.p2n_maxmin_subsample.argtypes = [pd, i64, i64, i64, pu8]
-    p32 = ctypes.POINTER(ctypes.c_int32)
-    pf = ctypes.POINTER(ctypes.c_float)
-    lib.p2n_fold_banded_ms.restype = None
-    lib.p2n_fold_banded_ms.argtypes = [
-        p32, p32, pf, pf, pf, i64, p64, p64, i64, i64, i64, i64,
-        ctypes.c_float, pf, i64]
     _lib = lib
     return _lib
 
@@ -110,37 +104,6 @@ def kmer_anchors(s1: str, s2: str, k: int, min_run: int = 1):
     if lib is None:
         return None
     return _run_anchors(lib.p2n_kmer_anchors, s1, s2, k, min_run)
-
-
-def fold_banded_ms(ls, rs, lw, rw, table, ilo, w, L, R, D, W, lng,
-                   ms_out, n_threads: int = 0):
-    """Native pre-folded banded match-score stripe (one fused threaded
-    pass); returns False if the library is unavailable (numpy fallback
-    applies). ms_out must be a C-contiguous (Dpk, W) float32 array."""
-    lib = get_lib()
-    if lib is None:
-        return False
-    import ctypes as ct
-    if n_threads <= 0:
-        n_threads = min(os.cpu_count() or 1, 16)
-    p32 = ct.POINTER(ct.c_int32)
-    pf = ct.POINTER(ct.c_float)
-    p64 = ct.POINTER(ct.c_int64)
-    ls = np.ascontiguousarray(ls, np.int32)
-    rs = np.ascontiguousarray(rs, np.int32)
-    lw = np.ascontiguousarray(lw, np.float32)
-    rw = np.ascontiguousarray(rw, np.float32)
-    table = np.ascontiguousarray(table, np.float32)
-    ilo = np.ascontiguousarray(ilo, np.int64)
-    w = np.ascontiguousarray(w, np.int64)
-    lib.p2n_fold_banded_ms(
-        ls.ctypes.data_as(p32), rs.ctypes.data_as(p32),
-        lw.ctypes.data_as(pf), rw.ctypes.data_as(pf),
-        table.ctypes.data_as(pf), table.shape[1],
-        ilo.ctypes.data_as(p64), w.ctypes.data_as(p64),
-        L, R, D, W, np.float32(lng),
-        ms_out.ctypes.data_as(pf), n_threads)
-    return True
 
 
 def maxmin_subsample(dist: np.ndarray, keep_n: int, first: int):

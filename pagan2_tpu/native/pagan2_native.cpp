@@ -1,8 +1,8 @@
 // pagan2-tpu native runtime: host-side hot paths of the alignment
-// pipeline, the TPU-native equivalent of the reference's C++ utility
+// pipeline, the equivalent of the reference's C++ utility
 // layer (anchor discovery src/utils/find_anchors.cpp, FASTA ingest
-// src/utils/fasta_reader.cpp). The DP itself runs on TPU via
-// pallas/XLA; these are the CPU components feeding it.
+// src/utils/fasta_reader.cpp). The DP itself runs on the device via
+// XLA and CUDA; these are the CPU components feeding it.
 //
 // Exposed as a plain C ABI consumed through ctypes
 // (pagan2_tpu/native/__init__.py). Semantics intentionally match the
@@ -216,68 +216,6 @@ void p2n_maxmin_subsample(const double* dist, int64_t n, int64_t keep_n,
         keep[far_i] = 1;
         cur = far_i;
     }
-}
-
-// Pre-folded banded match-score stripe for the windowed banded kernel
-// (viterbi_pallas_banded.pallas_banded_args host prep). For each
-// diagonal d in [1, D) and in-band lane t < w[d]:
-//   i = ilo[d] + t, j = d - i
-//   ms[(d-1)*W + t] = table[ls[i]*nf + rs[j]] + lw[i] + rw[j] + lng
-// (0 outside the band width or the matrix; those cells are masked by
-// the kernel's validity checks anyway). One fused pass, threaded over
-// diagonal ranges — replaces ~10 GB of numpy temporaries on a 1 Mb
-// pair.
-void p2n_fold_banded_ms(const int32_t* ls, const int32_t* rs,
-                        const float* lw, const float* rw,
-                        const float* table, int64_t nf,
-                        const int64_t* ilo, const int64_t* w,
-                        int64_t L, int64_t R, int64_t D, int64_t W,
-                        float lng, float* ms, int64_t n_threads) {
-    if (n_threads < 1) n_threads = 1;
-    auto work = [&](int64_t d0, int64_t d1) {
-        for (int64_t d = d0; d < d1; ++d) {
-            float* row = ms + (d - 1) * W;
-            int64_t lo = ilo[d];
-            int64_t wd = w[d];
-            if (wd > W) wd = W;
-            int64_t t = 0;
-            int64_t tabsz = nf * nf;
-            for (; t < wd; ++t) {
-                int64_t i = lo + t;
-                int64_t j = d - i;
-                if (i >= 0 && i < L && j >= 0 && j < R) {
-                    int64_t code = (int64_t)ls[i] * nf + rs[j];
-                    if (__builtin_expect(code < 0 || code >= tabsz,
-                                         0)) {
-                        // start/stop sentinel states are negative; the
-                        // numpy path's flat index wraps python-style
-                        // and the kernel masks those cells — replicate
-                        // the wrap so both paths emit identical
-                        // streams
-                        code %= tabsz;
-                        if (code < 0) code += tabsz;
-                    }
-                    row[t] = table[code] + lw[i] + rw[j] + lng;
-                } else {
-                    row[t] = 0.0f;
-                }
-            }
-            for (; t < W; ++t) row[t] = 0.0f;
-        }
-    };
-    if (n_threads == 1 || D < 4096) {
-        work(1, D);
-        return;
-    }
-    std::vector<std::thread> ths;
-    int64_t span = (D - 1 + n_threads - 1) / n_threads;
-    for (int64_t k = 0; k < n_threads; ++k) {
-        int64_t d0 = 1 + k * span;
-        int64_t d1 = std::min<int64_t>(d0 + span, D);
-        if (d0 >= d1) break;
-        ths.emplace_back(work, d0, d1);
-    }
-    for (auto& t : ths) t.join();
 }
 
 }  // extern "C"

@@ -2,8 +2,8 @@
 
 The reference runs independent guide-tree nodes concurrently on CPU
 threads (boost queue node.cpp:273-345, OpenMP waves node.cpp:227-269).
-The TPU-native replacement batches one generation's independent pairwise
-jobs into a single batched wavefront launch (jobs stacked on the batch
+Here one generation's independent pairwise jobs are batched into a
+single batched wavefront launch (jobs stacked on the batch
 axis, padded to shared shape buckets) and shards the batch over the
 `jobs` axis of a device mesh. Backtrack and ancestral-graph construction
 stay per-job on host (O(path) work).
@@ -41,19 +41,25 @@ SHARDBAND_MIN_L = 1 << 16
 
 
 def reset_stats():
+    from ..align.backend import FILL_COUNTS
     for k in EXEC_STATS:
         EXEC_STATS[k] = 0
+    FILL_COUNTS.clear()
 
 
 def kernel_key_counts() -> dict:
-    """Distinct fan-in kernel keys compiled this process (scan cores +
-    pallas).  The K/G/offset bucketing exists to keep these flat as a
-    pileup root's fan-in creeps; bench.py reports them so the
-    compile-reuse win is measured, not assumed (VERDICT r4 item 3)."""
+    """Distinct fan-in scan-core compile keys this process.  The
+    K/G/offset bucketing exists to keep these flat as a pileup root's
+    fan-in creeps; chip_smoke.py reports them so the compile reuse is
+    measured, not assumed."""
     from ..align import viterbi_fanin as vf
-    from ..align import viterbi_pallas_fanin as vpf
-    return {"fanin_scan": len(vf.FILL_KEYS),
-            "fanin_pallas": len(vpf.FILL_KEYS)}
+    return {"fanin_scan": len(vf.FILL_KEYS)}
+
+
+def _is_device_oom(e: Exception) -> bool:
+    import jax
+    return (isinstance(e, jax.errors.JaxRuntimeError)
+            and "RESOURCE_EXHAUSTED" in str(e))
 
 
 @dataclass
@@ -128,9 +134,8 @@ def _plan_job(job: PairJob):
         if KL > K_CAP or KR > K_CAP or OL + OR > G_CAP:
             return "single"
         if scan_core_bound(KL, OL, KR, OR):
-            # pallas-ineligible pair: fills run on the ~20x-dearer
-            # windowed gather scan core, so anchor from a much
-            # smaller size (the reference anchors every pair)
+            # wide fan-in pair: anchor from a much smaller size (the
+            # reference anchors every pair)
             gate = min(gate, SCAN_ANCHOR_MIN_SITES)
     if job.band is None and s.use_anchors and \
             min(job.left.num_sites(), job.right.num_sites()) > gate:
@@ -176,7 +181,7 @@ def _run_shardband(job: PairJob, mesh, dtype):
     of the sheared wavefront splits over the mesh with halo exchange
     (viterbi_shardband; bit-identical to the 1-device kernel). This is
     SURVEY §2.5's north star as a production dispatch: one pair too big
-    for one chip's turn rides all chips."""
+    for one device's turn rides all devices."""
     import time
     from ..align import _acct, _band_cells
     from ..align.ancestral import build_ancestral_graph
@@ -194,6 +199,8 @@ def _run_shardband(job: PairJob, mesh, dtype):
     L = job.left.num_sites() - 1
     R = job.right.num_sites() - 1
     _acct(t0, _band_cells(job.band, L, R))
+    from ..align.backend import count_fill
+    count_fill("scan", mesh.devices.flat[0])
     EXEC_STATS["shardband_fills"] += 1
     EXEC_STATS["launches"] += 1
     log_out("shard_map band-axis fill: %dx%d over %d devices"
@@ -229,6 +236,8 @@ def _run_shardband_fanin(job: PairJob, mesh, dtype):
     L = job.left.num_sites() - 1
     R = job.right.num_sites() - 1
     _acct(t0, _band_cells(job.band, L, R))
+    from ..align.backend import count_fill
+    count_fill("scan", mesh.devices.flat[0])
     EXEC_STATS["shardband_fills"] += 1
     EXEC_STATS["launches"] += 1
     log_out("shard_map band-axis fan-in fill: %dx%d over %d devices"
@@ -423,17 +432,14 @@ def execute_pair_jobs(jobs: list[PairJob], engine: str = "auto",
                     launcher(jobs, part, results, Lp, Rp, mesh,
                              n_shards, engine, dtype)
                 except Exception as e:
-                    # launch-level failure recovery: a failed batched
-                    # device launch (OOM, backend error) degrades to
-                    # per-job dispatch instead of killing the run.
-                    # PAGAN2_STRICT=1 re-raises (set in tests so real
-                    # bugs cannot hide behind the fallback).
-                    import os as _os
-                    if _os.environ.get("PAGAN2_STRICT"):
+                    # a batched launch that runs out of device memory
+                    # re-runs its jobs one at a time; anything else is
+                    # a fault and raises
+                    if not _is_device_oom(e):
                         raise
-                    log_out("batched launch failed (%s: %s); "
-                            "re-running %d jobs singly"
-                            % (e.__class__.__name__, e, len(part)), 0)
+                    log_out("batched launch out of device memory (%s); "
+                            "re-running %d jobs singly" % (e, len(part)),
+                            0)
                     for i in part:
                         if results[i] is None:
                             results[i] = _run_single(jobs[i], engine)
@@ -445,21 +451,11 @@ def _launch_sheared_batch(jobs, idxs, results, Lp, Rp, mesh, n_shards,
     import time
     import jax
     from ..align.viterbi_sheared import batched_sheared_fill
-    from ..align import viterbi_pallas as vp
+    from ..align.backend import fill_impl, count_fill, KERNEL
 
-    # single-shard accelerator launches take the unrolled pallas kernel
-    # (the scan core issues one tiny step per diagonal and round-trips
-    # HBM there — milli-GCUPS on TPU regardless of batch size)
-    if (vp.INTERPRET or jax.default_backend() != "cpu") \
-            and n_shards == 1:
-        try:
-            _launch_pallas_linear_batch(jobs, idxs, results, Lp, Rp,
-                                        engine)
-            return
-        except Exception as e:       # pragma: no cover - defensive
-            log_out("pallas batched linear fill failed (%s: %s); "
-                    "using the scan core"
-                    % (e.__class__.__name__, e), 1)
+    if fill_impl("linear", sharded=n_shards > 1) == KERNEL:
+        _launch_kernel_linear_batch(jobs, idxs, results, Lp, Rp, engine)
+        return
 
     t_launch = time.perf_counter()
     B = len(idxs)
@@ -476,6 +472,7 @@ def _launch_sheared_batch(jobs, idxs, results, Lp, Rp, mesh, n_shards,
         spec = NamedSharding(mesh, P("jobs"))
         args = [jax.device_put(a, spec) for a in args]
     bp, final = batched_sheared_fill(*args)
+    count_fill("scan", next(iter(args[0].devices())), B)
     EXEC_STATS["launches"] += 1
     EXEC_STATS["batched_jobs"] += B
     EXEC_STATS["batched_cells"] += sum(
@@ -491,92 +488,28 @@ def _launch_sheared_batch(jobs, idxs, results, Lp, Rp, mesh, n_shards,
                                      engine)
 
 
-def _launch_pallas_linear_batch(jobs, idxs, results, Lp, Rp, engine):
-    """Batched unrolled pallas fill for a bucket of linear-chain jobs
-    (the production TPU path; per-job prep and the fold+shear of match
-    scores run on device via pallas_job_arrays)."""
+def _launch_kernel_linear_batch(jobs, idxs, results, Lp, Rp, engine):
+    """One Hopper-kernel launch for a bucket of linear-chain jobs (one
+    thread block per job)."""
     import time
-    import jax.numpy as jnp  # noqa: F401  (device context)
-    from ..align.viterbi_pallas import (pallas_job_arrays,
-                                        pallas_batch_args, pallas_fill,
-                                        _add_scalar_params,
-                                        _lane_bucket, _PackedBP)
-    from ..align.viterbi_sheared import (prepare_sheared, _ShearedCells,
-                                         _end_corner_linear)
-    from ..align.viterbi_jax import _backtrack_arrays
-    from ..align.ancestral import build_ancestral_graph
-    from ..align.oracle import PathPtr
-    from ..utils import fetch_np
+    from ..align.hopper import linear_job, linear_fill
+    from ..align.backend import count_fill, KERNEL
 
-    Lpp = _lane_bucket(Lp)
-    Dpk = Lpp + Rp - 2
-    # sub-chunk so one launch's sheared stream stays under ~1 GB f32
-    max_b = max(1, (1 << 28) // max(Dpk * Lpp, 1))
-    for c0 in range(0, len(idxs), max_b):
-        part = idxs[c0:c0 + max_b]
-        t_launch = time.perf_counter()
-        pjobs = []
-        inputs = []
-        for i in part:
-            job = jobs[i]
-            s = _job_settings(job)
-            inp = prepare_sheared(job.left, job.right, job.model, s,
-                                  np.float32)
-            _add_scalar_params(inp)
-            inputs.append(inp)
-            pjobs.append(pallas_job_arrays(inp, Lpp, Rp, band=job.band))
-        # pad the batch to >= 8 / a power of two so shrinking
-        # generations reuse ONE compiled kernel per shape bucket
-        # (compiles are minutes on TPU and not always cached)
-        pad_to = 8
-        while pad_to < len(pjobs):
-            pad_to *= 2
-        pad_to = min(pad_to, max_b) if max_b >= 8 else len(pjobs)
-        while len(pjobs) < pad_to:
-            pjobs.append(pjobs[0])
-        args = pallas_batch_args(pjobs, Lpp, Rp)
-        bpp, fM, fX, fY = pallas_fill(*args)
-        # keep the bp plane PACKED: backtrack decodes the O(L+R) cells
-        # it touches lazily (_PackedBP); exact — packed values < 2^24
-        bp = np.asarray(bpp).astype(np.int32)
-        fM, fX, fY = fetch_np(fM), fetch_np(fX), fetch_np(fY)
-        EXEC_STATS["launches"] += 1
-        EXEC_STATS["batched_jobs"] += len(part)
-        EXEC_STATS["batched_cells"] += sum(
-            inp["L"] * inp["R"] for inp in inputs)
-        log_out("batched launch: %d jobs (bucket %dx%d, pallas)"
-                % (len(part), Lpp, Rp), 3)
-        EXEC_STATS["fill_seconds"] += time.perf_counter() - t_launch
-        for b, i in enumerate(part):
-            job = jobs[i]
-            s = _job_settings(job)
-            L, R = inputs[b]["L"], inputs[b]["R"]
-            li = L - 1
-            final = np.array([fM[b, li], fX[b, li], fY[b, li]])
-            if job.band is not None and not np.isfinite(final).any():
-                # anchored fill dead-ended: full-matrix retry
-                # (viterbi_alignment.cpp:298-317)
-                job.band = None
-                results[i] = _run_single(job, engine)
-                continue
-            cells = _ShearedCells.__new__(_ShearedCells)
-            cells.bp = _PackedBP(bp, b)
-            cells.left = job.left
-            cells.right = job.right
-            end = _end_corner_linear(final, job.left, job.right,
-                                     job.model, L, R)
-            end.bwd_score = 1.0
-            end.full_score = 1.0
-            path = _backtrack_arrays(cells, job.left, job.right,
-                                     PathPtr(end, True), L, R,
-                                     job.left_branch_length,
-                                     job.right_branch_length)
-            anc = build_ancestral_graph(
-                job.left, job.right, path, job.model, s,
-                job.left_branch_length, job.right_branch_length,
-                job.is_reads_sequence,
-                compute_consensus=job.compute_consensus)
-            results[i] = (anc, end)
+    t_launch = time.perf_counter()
+    packed = [linear_job(jobs[i].left, jobs[i].right, jobs[i].model,
+                         _job_settings(jobs[i]), Lp, Rp, band=jobs[i].band)
+              for i in idxs]
+    bp, final = linear_fill(packed, Lp + Rp - 1, Lp)
+    count_fill(KERNEL, n=len(idxs))
+    EXEC_STATS["launches"] += 1
+    EXEC_STATS["batched_jobs"] += len(idxs)
+    EXEC_STATS["batched_cells"] += sum(p["L"] * p["R"] for p in packed)
+    log_out("batched launch: %d jobs (bucket %dx%d, kernel)"
+            % (len(idxs), Lp, Rp), 3)
+    EXEC_STATS["fill_seconds"] += time.perf_counter() - t_launch
+    for b, i in enumerate(idxs):
+        results[i] = _finish_sheared(jobs[i], packed[b], bp[b], final[b],
+                                     engine)
 
 
 def _fanin_batch_paths(jobs, idxs, Lp, Rp, mesh, n_shards, dtype):
@@ -589,7 +522,10 @@ def _fanin_batch_paths(jobs, idxs, Lp, Rp, mesh, n_shards, dtype):
     t_launch = time.perf_counter()
     from ..align.viterbi_fanin import (prepare_fanin, stack_fanin,
                                        get_fanin_fill, finish_fanin,
-                                       _g_bucket)
+                                       fanin_overcap, _g_bucket,
+                                       _k_bucket)
+    from ..align.backend import (fill_impl, count_fill, host_scan_device,
+                                 KERNEL)
 
     B = len(idxs)
     pad_to = 1
@@ -612,7 +548,6 @@ def _fanin_batch_paths(jobs, idxs, Lp, Rp, mesh, n_shards, dtype):
                 np.asarray(job.band[1][:L], np.int64), 0,
                 R - 1).astype(np.int32)
         inputs.append(inp)
-    from ..align.viterbi_fanin import _k_bucket
     KL = _k_bucket(max(inp["KL"] for inp in inputs))
     KR = _k_bucket(max(inp["KR"] for inp in inputs))
     G = _g_bucket(max(inp["OL"] + inp["OR"] for inp in inputs))
@@ -630,24 +565,23 @@ def _fanin_batch_paths(jobs, idxs, Lp, Rp, mesh, n_shards, dtype):
         if paths[b][0] is None:
             paths[b] = None
 
-    # single-shard accelerator launches take the VMEM-ring pallas
-    # kernel (scan cores round-trip the ring through HBM per diagonal)
-    from ..align import viterbi_pallas_fanin as vpf
-    if ((vpf.INTERPRET or jax.default_backend() != "cpu")
-            and n_shards == 1
-            and vpf.pallas_fanin_eligible(inputs, B, Lp)
-            and (Lp + Rp) * Lp * B * 12 <= 2 * 1024 ** 3):
-        bpB, snapsB = vpf.pallas_fanin_run(inputs, Lp, Rp, KL, KR)
+    OLx = max(i["OL"] for i in inputs)
+    ORx = max(i["OR"] for i in inputs)
+    overcap = fanin_overcap(KL, KR, OLx, ORx)
+    if fill_impl("fanin", sharded=n_shards > 1, overcap=overcap) == KERNEL:
+        from ..align.hopper import fanin_fill
+        bpB, snapsB = fanin_fill(inputs, Lp, Rp, KL, KR)
+        count_fill(KERNEL, n=B)
         EXEC_STATS["launches"] += 1
         EXEC_STATS["batched_jobs"] += B
         EXEC_STATS["batched_cells"] += sum(
             inp["L"] * inp["R"] for inp in inputs)
         log_out("batched fan-in launch: %d jobs (bucket %dx%d K%d/%d, "
-                "pallas)" % (B, Lp, Rp, KL, KR), 3)
+                "kernel)" % (B, Lp, Rp, KL, KR), 3)
         EXEC_STATS["fill_seconds"] += time.perf_counter() - t_launch
         ilo = np.zeros(Lp + Rp - 1, np.int32)
         for b, i in enumerate(idxs):
-            finish(b, i, bpB[b], tuple(sn[b] for sn in snapsB), ilo)
+            finish(b, i, bpB[b], tuple(snapsB[b]), ilo)
         return paths
 
     stacked = inputs + [inputs[0]] * (pad_to - B)
@@ -659,25 +593,17 @@ def _fanin_batch_paths(jobs, idxs, Lp, Rp, mesh, n_shards, dtype):
         args = [jax.device_put(a, spec) if k != 12 else a
                 for k, a in enumerate(args)]
     else:
-        # over-cap single-shard batches on accelerator backends run on
-        # the host CPU device: the scan ring round-trips device
-        # memory per diagonal (host_scan_device docstring); merely
-        # pallas-ineligible batches within the one-hot caps stay on
-        # the accelerator unless PAGAN2_HOST_SCAN=all
-        from ..align.viterbi_fanin import (host_scan_device, K_CAP,
-                                           _k_bucket)
-        overcap = (KL > K_CAP or KR > K_CAP or
-                   _k_bucket(max(i["OL"] for i in inputs)) *
-                   _k_bucket(max(i["OR"] for i in inputs)) > 64)
+        # over-cap batches on a GPU run on the host CPU device by
+        # default (backend.host_scan_device)
         hdev = host_scan_device(overcap)
         if hdev is not None:
             args = [jax.device_put(a, hdev) for a in args]
     # offsets are static kernel-key dims like K: bucket them so the
     # creep (one homopolymer run at a time) reuses compiled kernels
-    fill = get_fanin_fill(KL, KR, G, Lp,
-                          OLm=_k_bucket(max(i["OL"] for i in inputs)),
-                          ORm=_k_bucket(max(i["OR"] for i in inputs)))
+    fill = get_fanin_fill(KL, KR, G, Lp, OLm=_k_bucket(OLx),
+                          ORm=_k_bucket(ORx))
     bp, sM, sX, sY = fill(*args)
+    count_fill("scan", next(iter(args[0].devices())), B)
     EXEC_STATS["launches"] += 1
     EXEC_STATS["batched_jobs"] += B
     EXEC_STATS["batched_cells"] += sum(
@@ -783,6 +709,8 @@ def _launch_fullprob_batch(jobs, idxs, results, Lp, Rp, mesh, n_shards,
     else:
         (fM, fX, fY, fcum), (bM, bX, bY, bcum) = \
             fp.linear_plane_fills(*args, seeds)
+    from ..align.backend import count_fill
+    count_fill("fullprob", next(iter(args[0].devices())), B)
 
     # batched Viterbi fill for the jobs that follow the best path
     # (sampling jobs draw their path from the planes instead)
@@ -966,6 +894,8 @@ def _launch_fanin_fullprob_batch(jobs, idxs, results, Lp, Rp, mesh,
     fwd, bwd = fp.fanin_gather_fills_batched(KL, KR, KFL, KFR, G)
     fM, fX, fY, fcum = fwd(*fargs)
     bM, bX, bY, bcum = bwd(*bargs)
+    from ..align.backend import count_fill
+    count_fill("fullprob", next(iter(fargs[0].devices())), B)
 
     from ..utils import fetch_np
     fM, fX, fY, fcum = (fetch_np(fM), fetch_np(fX), fetch_np(fY),

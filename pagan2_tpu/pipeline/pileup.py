@@ -39,9 +39,8 @@ class PileupConfig:
     allow_skip_low_qscore: bool = False
     # the reference anchors EVERY pair (node.cpp:87-152); the engine's
     # global size gate (anchor_min_sites=3000) assumes cheap linear
-    # cells, but deep-fan-in scan cells are ~20x dearer, so read-vs-
-    # root alignments anchor from 200 sites (measured 3.5x e2e win,
-    # identical output)
+    # cells, but deep-fan-in cells cost many times more, so read-vs-
+    # root alignments anchor from 200 sites (identical output)
     anchor_reads_min_sites: int = 200
 
 

@@ -58,7 +58,7 @@ class PlacementConfig:
     exhaustive_placement: bool = False
     # the reference anchors EVERY pair (node.cpp:87-152); like the
     # pileup's anchor_reads_min_sites, query-vs-node alignments anchor
-    # from 200 sites (deep-fan-in scan cells are ~20x dearer than the
+    # from 200 sites (deep-fan-in cells cost many times more than the
     # linear cells the global 3000 gate assumes)
     anchor_reads_min_sites: int = 200
     # --guided / --no-preselection: restrict candidates to nodes whose

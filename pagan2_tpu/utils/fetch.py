@@ -2,7 +2,7 @@
 
 On the CPU backend np.from_dlpack aliases the device buffer directly
 (saving a full copy of the backpointer planes — the largest readback on
-every batched launch); on TPU or when dlpack refuses, fall back to the
+every batched launch); on the GPU or when dlpack refuses, fall back to the
 plain copying np.asarray. Under multi-host execution a globally-sharded
 result is not fully addressable locally, so it is allgathered first
 (every host finishes the whole generation's backtracks, mirroring the

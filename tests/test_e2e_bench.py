@@ -1,11 +1,8 @@
-"""CPU-scaled end-to-end bench secondaries AS TESTS (VERDICT r4 item 4).
-
-The round-4 failure mode was "commit a kernel-key change, never run the
-bench path that exercises it": the suite was green while the canonical
-pileup crashed.  These tests run bench.py's three e2e secondaries —
-pileup, progressive family, megabase banded prep+fill — at CPU scale
-inside the suite, so the bench paths cannot be skipped.  Deselect with
-`-m "not e2e"` when iterating on something unrelated.
+"""bench.py's end-to-end cells at CPU scale, as tests: pileup,
+progressive family, megabase anchoring + band fill.  A change to a
+fill or its compile keys cannot land without driving the paths these
+cells use.  Deselect with `-m "not e2e"` when iterating on something
+unrelated.
 """
 import os
 import sys
@@ -19,7 +16,7 @@ pytestmark = pytest.mark.e2e
 
 def test_bench_pileup_e2e_cpu():
     from bench import bench_pileup_e2e
-    dt, desc = bench_pileup_e2e(on_tpu=False)
+    dt, desc = bench_pileup_e2e(full=False)
     assert dt > 0 and "placed" in desc
     # amplicon-style reads all overlap the first read, so every read
     # must place; a regression that crashes the backtrack or discards
@@ -30,25 +27,20 @@ def test_bench_pileup_e2e_cpu():
 
 def test_bench_family_e2e_cpu():
     from bench import bench_family_e2e
-    dt, desc = bench_family_e2e(on_tpu=False)
+    dt, desc = bench_family_e2e(full=False)
     assert dt > 0 and "progressive family" in desc
 
 
 def test_bench_megabase_cpu():
     import numpy as np
     from bench import bench_megabase
-    from pagan2_tpu.align import viterbi_pallas_banded as vpb
     from pagan2_tpu.models import ModelFactory, alphabets as alph
     from pagan2_tpu.align import AlignSettings
     model = ModelFactory(alph.DNA).alignment_model(0.2)
-    was = vpb.INTERPRET
-    try:
-        ms, desc, prep = bench_megabase(np.random.default_rng(0), model,
-                                        AlignSettings(), on_tpu=False)
-    finally:
-        vpb.INTERPRET = was
+    ms, desc, prep = bench_megabase(np.random.default_rng(0), model,
+                                    AlignSettings(), full=False)
     assert ms > 0 and "in-band" in desc
     # the prep breakdown must be reported and account for the total
     assert set(prep) == {"build_s", "anchor_scan_s", "band_smooth_s",
-                         "ms_fold_pack_s", "total_s"}
+                         "total_s"}
     assert prep["total_s"] >= prep["build_s"]

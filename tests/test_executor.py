@@ -1,6 +1,6 @@
 """Batched generation executor: parity vs sequential/oracle paths, one
 launch per shape bucket per generation, and jobs-mesh sharding over the
-virtual 8-device CPU mesh (the TPU-native replacement of the
+virtual 8-device CPU mesh (the device-mesh replacement of the
 reference's OpenMP wavefront, node.cpp:227-269)."""
 import numpy as np
 import pytest
@@ -282,21 +282,21 @@ def test_fanin_sample_path_batch_matches_sequential(monkeypatch):
     assert _job_alignment_keys(res_b) == _job_alignment_keys(res_s)
 
 
-def test_batched_linear_pallas_launch_matches_singles(monkeypatch):
-    """On accelerator backends the batched linear launch takes the
-    unrolled pallas kernel (the scan core is dispatch-bound on TPU);
-    results must match per-job pallas fills exactly (both f32 — the
-    f64 scan core may flip near-ties, which is the usual f32 kernel
-    caveat, not a batching artifact)."""
-    from pagan2_tpu.align import viterbi_pallas as vp
+def test_batched_linear_pallas_launch_matches_singles(monkeypatch,
+                                                     emulated_kernels):
+    """On a GPU the batched linear launch takes the Hopper kernel (one
+    block per job); results must match per-job kernel fills exactly
+    (both f32 — the f64 scan core may flip near-ties, which is the
+    usual f32 caveat, not a batching artifact)."""
+    from pagan2_tpu.align.backend import FILL_COUNTS
     entries = _family(8, length=90, seed=21)
     newick = _balanced_tree(8)
 
-    monkeypatch.setattr(vp, "INTERPRET", True)
     executor.reset_stats()
     res_p = align_progressive(entries, newick, data_type=alph.DNA)
     stats = dict(executor.EXEC_STATS)
     assert stats["batched_jobs"] >= 4, stats
+    assert FILL_COUNTS["kernel@cpu"] >= 4 and not FILL_COUNTS["scan@cpu"]
 
     orig = executor._plan_job
 
@@ -351,10 +351,9 @@ def test_single_dispatch_preserves_reads_flag():
 
 
 def test_failed_batch_launch_degrades_to_single(monkeypatch):
-    """Launch-level failure recovery: a batched launch that raises
-    (device OOM, backend error) re-runs its jobs singly instead of
-    killing the run; PAGAN2_STRICT re-raises."""
-    import os
+    """A batched launch that runs out of device memory re-runs its jobs
+    singly instead of killing the run; any other failure raises."""
+    import jax
     from pagan2_tpu.graph import build_leaf_graph
     from pagan2_tpu.models import ModelFactory
     from pagan2_tpu.align import AlignSettings
@@ -370,18 +369,20 @@ def test_failed_batch_launch_degrades_to_single(monkeypatch):
                                         settings=AlignSettings()))
         return out
 
+    def oom(*a, **k):
+        raise jax.errors.JaxRuntimeError(
+            "RESOURCE_EXHAUSTED: synthetic device OOM")
+
     def boom(*a, **k):
         raise RuntimeError("synthetic device failure")
 
-    monkeypatch.setattr(executor, "_launch_sheared_batch", boom)
-    monkeypatch.setenv("PAGAN2_STRICT", "")
-    monkeypatch.delenv("PAGAN2_STRICT", raising=False)
+    monkeypatch.setattr(executor, "_launch_sheared_batch", oom)
     executor.reset_stats()
     res = executor.execute_pair_jobs(jobs())
     assert all(r is not None and r[0] is not None for r in res)
     assert executor.EXEC_STATS["single_jobs"] == 3
 
-    monkeypatch.setenv("PAGAN2_STRICT", "1")
+    monkeypatch.setattr(executor, "_launch_sheared_batch", boom)
     import pytest as _pytest
     with _pytest.raises(RuntimeError, match="synthetic"):
         executor.execute_pair_jobs(jobs())

@@ -4,7 +4,7 @@ ancestors with indels), banded fills, and the batched executor path.
 
 The reference's hot kernel iterates edge pairs per cell
 (viterbi_alignment.cpp:1353-1436) and tunnels every pair, graph or not
-(:44-185); this kernel is the TPU equivalent."""
+(:44-185); these fills are the device equivalent."""
 import numpy as np
 import pytest
 
@@ -147,10 +147,16 @@ def test_executor_batches_fanin_generations():
 
 
 # ----------------------------------------------------------------------
-# pallas fan-in kernel (viterbi_pallas_fanin): the fanin_align_path /
-# executor dispatch must route through it with identical results
+# Hopper fan-in kernel (hopper.fanin_fill, kernel loop emulated on the
+# CPU): the fanin_align_path / executor dispatch must route through it
+# with identical results
 
-from pagan2_tpu.align import viterbi_pallas_fanin as vpf  # noqa: E402
+from hopper_emulator import kernels_on_cpu  # noqa: E402
+from pagan2_tpu.align.viterbi_fanin import fanin_overcap  # noqa: E402
+
+
+def _kernel_eligible(inp):
+    return not fanin_overcap(inp["KL"], inp["KR"], inp["OL"], inp["OR"])
 
 
 def test_pallas_fanin_dispatch_matches_scan_and_oracle():
@@ -162,8 +168,7 @@ def test_pallas_fanin_dispatch_matches_scan_and_oracle():
     for trial in range(4):
         g1, g2, s1, s2 = _graphs(trial, rng, n=34 + 7 * trial)
         inp = prepare_fanin(g1, g2, model, settings)
-        if not fanin_device_eligible(inp) or \
-                not vpf.pallas_fanin_eligible([inp], 1, 64):
+        if not fanin_device_eligible(inp) or not _kernel_eligible(inp):
             continue
         opath, oend = PairAligner(g1, g2, model, settings).align()
 
@@ -175,11 +180,8 @@ def test_pallas_fanin_dispatch_matches_scan_and_oracle():
         ga, gb = rebuild()
         spath, send = fanin_align_path(ga, gb, model, settings)  # scan
         ga, gb = rebuild()
-        vpf.INTERPRET = True
-        try:
+        with kernels_on_cpu():
             ppath, pend = fanin_align_path(ga, gb, model, settings)
-        finally:
-            vpf.INTERPRET = False
         assert _sig(ppath) == _sig(opath) == _sig(spath)
         assert pend.score == pytest.approx(oend.score, rel=1e-5)
         checked += 1
@@ -187,7 +189,7 @@ def test_pallas_fanin_dispatch_matches_scan_and_oracle():
 
 
 def test_pallas_fanin_banded_masks_match_windowed_scan():
-    """Band bounds are honored as masks in the pallas kernel; the path
+    """Band bounds are honored as masks in the fan-in kernel; the path
     must equal the windowed scan's banded fill."""
     rng = np.random.default_rng(12)
     mf = ModelFactory(alph.DNA)
@@ -210,18 +212,15 @@ def test_pallas_fanin_banded_masks_match_windowed_scan():
     spath, send = fanin_align_path(ga, gb, model, settings,
                                    band=(upper, lower))
     ga, gb = rebuild()
-    vpf.INTERPRET = True
-    try:
+    with kernels_on_cpu():
         ppath, pend = fanin_align_path(ga, gb, model, settings,
                                        band=(upper, lower))
-    finally:
-        vpf.INTERPRET = False
     assert _sig(ppath) == _sig(spath)
     assert pend.score == pytest.approx(send.score, rel=1e-5)
 
 
 def test_pallas_fanin_batch_executor_matches_single():
-    """The batched executor's pallas fan-in launch must produce the
+    """The batched executor's fan-in kernel launch must produce the
     same ancestors as per-job scan fills."""
     import copy
     from pagan2_tpu.parallel.executor import execute_pair_jobs, PairJob
@@ -241,11 +240,8 @@ def test_pallas_fanin_batch_executor_matches_single():
                             settings=settings))
         singles.append(fanin_align_path(g1, g2, model, settings))
     assert len(jobs) >= 2
-    vpf.INTERPRET = True
-    try:
+    with kernels_on_cpu():
         results = execute_pair_jobs(jobs)
-    finally:
-        vpf.INTERPRET = False
     for (anc, end), (spath, send) in zip(results, singles):
         assert end.score == pytest.approx(send.score, rel=1e-5)
 
@@ -384,7 +380,7 @@ def _k_pair(k, seed=0):
 
 
 def test_k_creep_scan_core_sweep():
-    """Single-pair SCAN core (the CPU default and the TPU over-cap
+    """Single-pair SCAN core (the CPU default and the over-cap
     fallback) across raw K = 1..9: bucketed fill + decode must match
     the oracle exactly.  Reverting the kr_decode fix fails this at
     K = 5 (bucket 6)."""
@@ -409,7 +405,7 @@ def test_k_creep_scan_core_sweep():
 
 
 def test_k_creep_pallas_interpret_sweep():
-    """Single-pair PALLAS path (interpret mode) across raw K = 1..8:
+    """Single-pair KERNEL path (emulated) across raw K = 1..8:
     same bucketed decode contract as the scan core."""
     mf = ModelFactory(alph.DNA)
     model = mf.alignment_model(0.3)
@@ -418,21 +414,17 @@ def test_k_creep_pallas_interpret_sweep():
     for k in (2, 4, 5, 7, 8):     # 5, 7 are the non-bucket values
         g1, g2, s1, s2 = _k_pair(k, seed=1)
         inp = prepare_fanin(g1, g2, model, settings)
-        if not vpf.pallas_fanin_eligible([inp], 1, 32):
+        if not _kernel_eligible(inp):
             continue
         opath, oend = PairAligner(g1, g2, model, settings).align()
         ga = build_leaf_graph(s1, alph.DNA, homopolymer=True)
         gb = build_leaf_graph(s2, alph.DNA, homopolymer=True)
-        vpf.INTERPRET = True
-        try:
+        with kernels_on_cpu():
             ppath, pend = fanin_align_path(ga, gb, model, settings)
-        finally:
-            vpf.INTERPRET = False
         assert _sig(ppath) == _sig(opath), f"raw K={k}"
         assert pend.score == pytest.approx(oend.score, rel=1e-5)
         checked.append(k)
-    # the non-bucket K=5 (bucket 6) must be exercised; larger K may
-    # fall off the pallas caps and take the scan core instead
+    # the non-bucket K=5 (bucket 6) must be exercised
     assert 5 in checked and len(checked) >= 3, checked
 
 

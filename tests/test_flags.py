@@ -356,7 +356,7 @@ def test_effective_anchor_gate_guards_stats_walk():
     assert effective_anchor_gate(lin, lin, 3000) == 3000
     small = build_leaf_graph("ACGT" * 40, alph.DNA)    # 160 < 200
     assert effective_anchor_gate(small, small, 3000) == 3000
-    # a deep-offset graph (skip edge spanning > OFF_CAP sites) IS
+    # a deep-offset graph (skip edge spanning > ANCHOR_OFF_CAP sites) IS
     # scan-core-bound: splice a long bwd edge into a 600-site chain
     deep = build_leaf_graph("ACGT" * 150, alph.DNA)
     deep.add_edge(10, 30, 0.5)                         # offset 20 > 7

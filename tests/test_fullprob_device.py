@@ -158,53 +158,3 @@ def test_align_pair_fullprob_uses_device(model, monkeypatch):
     assert anc.check_valid_graph()
     sup = anc.posterior_support[1:-1]
     assert any(0 < v < 1 for v in sup)
-
-
-# ----------------------------------------------------------------------
-# pallas probability kernels (fullprob_pallas): accelerator backends
-# fill the planes with unrolled kernels; parity vs the scan cores
-
-def test_pallas_planes_match_scan_cores(model):
-    from pagan2_tpu.align import fullprob_pallas as fpp
-    g1, g2 = _pair(6, 33, 29, sub=0.2)
-    s = replace(AlignSettings(), compute_full_score=True)
-    ref = FullProbPlanes(g1, g2, model, s)          # scan cores (CPU)
-    fpp.INTERPRET = True
-    try:
-        dev = FullProbPlanes(g1, g2, model, s)      # pallas interpret
-    finally:
-        fpp.INTERPRET = False
-    assert dev.log_total == pytest.approx(ref.log_total, rel=1e-12)
-    assert dev.log_total_bwd == pytest.approx(ref.log_total_bwd,
-                                              rel=1e-12)
-    np.testing.assert_allclose(dev.fcum, ref.fcum, rtol=1e-12)
-    np.testing.assert_allclose(dev.bcum, ref.bcum, rtol=1e-12)
-    for k in range(3):
-        np.testing.assert_allclose(dev.f[k], ref.f[k], rtol=1e-12,
-                                   atol=1e-300)
-        np.testing.assert_allclose(dev.b[k], ref.b[k], rtol=1e-12,
-                                   atol=1e-300)
-
-
-def test_pallas_planes_full_pipeline_cells(model):
-    """Pallas planes vs the oracle, cell by cell (the strongest check:
-    any seed/stream/reversal off-by-one breaks it)."""
-    from pagan2_tpu.align import fullprob_pallas as fpp
-    g1, g2 = _pair(9, 21, 26, sub=0.25)
-    a, end, s = _filled_oracle(g1, g2, model)
-    fpp.INTERPRET = True
-    try:
-        planes = FullProbPlanes(g1, g2, model, s)
-    finally:
-        fpp.INTERPRET = False
-    assert planes.total_fwd_score() == pytest.approx(end.fwd_score,
-                                                     rel=1e-9)
-    mats = {M_MAT: a.M, X_MAT: a.X, Y_MAT: a.Y}
-    for i in range(planes.L):
-        for j in range(planes.R):
-            for mk, om in mats.items():
-                c = om[i][j]
-                assert planes.fwd(mk, i, j) == pytest.approx(
-                    c.fwd_score, rel=1e-9, abs=1e-300), (mk, i, j)
-                assert planes.bwd(mk, i, j) == pytest.approx(
-                    c.bwd_score, rel=1e-9, abs=1e-300), (mk, i, j)

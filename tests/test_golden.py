@@ -208,18 +208,16 @@ def _engines_fanin(g1f, g2f, model, **kw):
     an edge-iteration-order transcription bug in any of them breaks the
     hand-derived expectations below."""
     from pagan2_tpu.align.viterbi_fanin import fanin_align_path
-    from pagan2_tpu.align import viterbi_pallas_fanin as vpf
+    from hopper_emulator import kernels_on_cpu
     s = AlignSettings(**kw)
     a, b = g1f(), g2f()
     yield ("oracle",) + PairAligner(a, b, model, s).align()
     a, b = g1f(), g2f()
     yield ("fanin-scan",) + fanin_align_path(a, b, model, s)
     a, b = g1f(), g2f()
-    vpf.INTERPRET = True
-    try:
-        yield ("fanin-pallas",) + fanin_align_path(a, b, model, s)
-    finally:
-        vpf.INTERPRET = False
+    with kernels_on_cpu():
+        kernel = fanin_align_path(a, b, model, s)
+    yield ("fanin-kernel",) + kernel
 
 
 def test_454_homopolymer_skip_edge_score(model):
@@ -240,8 +238,8 @@ def test_454_homopolymer_skip_edge_score(model):
         "ACGGGT", alph.DNA, quality="IIIIII", mode454=True)
     mk = lambda: build_leaf_graph("ACGGT", alph.DNA)  # noqa: E731
     for name, path, end in _engines_fanin(mk454, mk, model):
-        # the pallas kernel fills in f32
-        tol = 1e-6 if name == "fanin-pallas" else 1e-9
+        # the kernel fills in f32
+        tol = 1e-6 if name == "fanin-kernel" else 1e-9
         assert end.score == pytest.approx(expected, rel=tol), name
         real = [p for p in path if p.real_site]
         pushed = [p for p in path if not p.real_site]
@@ -311,7 +309,7 @@ def test_deep_homopolymer_skip_edge_score(model):
     KL, OL = fanin_stats(mkhp())
     assert KL == 5 and _k_bucket(KL) == 6          # raw K != bucket
     for name, path, end in _engines_fanin(mkhp, mk, model):
-        tol = 1e-6 if name == "fanin-pallas" else 1e-9
+        tol = 1e-6 if name == "fanin-kernel" else 1e-9
         assert end.score == pytest.approx(expected, rel=tol), name
         real = [p for p in path if p.real_site]
         pushed = [p for p in path if not p.real_site]
@@ -367,7 +365,7 @@ def test_deep_homopolymer_two_sided_fanin_score(model):
     KR = fanin_stats(mkr())[0]
     assert KR == 5 and _k_bucket(KR) == 6
     for name, path, end in _engines_fanin(mkl, mkr, model):
-        tol = 1e-6 if name == "fanin-pallas" else 1e-9
+        tol = 1e-6 if name == "fanin-kernel" else 1e-9
         assert end.score == pytest.approx(expected, rel=tol), name
         real = [p for p in path if p.real_site]
         pushed = [p for p in path if not p.real_site]

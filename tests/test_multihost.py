@@ -1,6 +1,6 @@
 """Multi-HOST execution proof (SURVEY §2.5's north star beyond one
 host): two real OS processes join one jax.distributed runtime over the
-loopback "DCN", the executor runs a generation of batched pair jobs
+loopback network, the executor runs a generation of batched pair jobs
 sharded over the GLOBAL 8-device jobs mesh (4 CPU devices per process),
 and the gathered results must be identical across processes AND to a
 plain single-process run. The reference has nothing beyond

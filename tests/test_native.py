@@ -99,73 +99,3 @@ def test_native_speedup_prefix():
     t_nat = time.perf_counter() - t0
     assert nat
     assert t_nat < 5.0
-
-
-def test_fold_banded_ms_matches_numpy(monkeypatch):
-    """The native fused banded match-score fold must be bit-identical
-    to the numpy sliding-window path (including the sentinel-state
-    index wrap at the start row)."""
-    import numpy as np
-    from dataclasses import replace
-    from pagan2_tpu.graph import build_leaf_graph
-    from pagan2_tpu.models import ModelFactory, alphabets as alph
-    from pagan2_tpu.align import AlignSettings, plan_band
-    from pagan2_tpu.align import viterbi_pallas_banded as vpb
-    import pagan2_tpu.native as native
-    if native.get_lib() is None:
-        import pytest
-        pytest.skip("native library unavailable")
-    rng = np.random.default_rng(3)
-    N = 5000
-    base = rng.choice(list("ACGT"), size=N)
-    mut = base.copy()
-    idx = rng.random(N) < 0.02
-    mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
-    model = ModelFactory(alph.DNA).alignment_model(0.2)
-    g1 = build_leaf_graph("".join(base), alph.DNA)
-    g2 = build_leaf_graph("".join(mut), alph.DNA)
-    band, _ = plan_band(g1, g2, replace(AlignSettings(),
-                                        force_gap=True))
-    args_n, _ = vpb.pallas_banded_args(g1, g2, model, AlignSettings(),
-                                       band[0], band[1])
-    ms_native = np.asarray(args_n["ms"]).copy()
-
-    monkeypatch.setattr(native, "fold_banded_ms",
-                        lambda *a, **k: False)
-    args_p, _ = vpb.pallas_banded_args(g1, g2, model, AlignSettings(),
-                                       band[0], band[1])
-    assert np.array_equal(ms_native, np.asarray(args_p["ms"]))
-
-
-def test_device_msfold_matches_host(monkeypatch):
-    """The on-device schedule + ms fold (large-pair path,
-    viterbi_pallas_banded._device_fold) must be bit-identical to the
-    host fold — sched AND ms, including the padding rows past D."""
-    import numpy as np
-    from dataclasses import replace
-    from pagan2_tpu.graph import build_leaf_graph
-    from pagan2_tpu.models import ModelFactory, alphabets as alph
-    from pagan2_tpu.align import AlignSettings, plan_band
-    from pagan2_tpu.align import viterbi_pallas_banded as vpb
-    rng = np.random.default_rng(7)
-    # big enough to clear the 1<<22 in-band-cells device-fold gate
-    N = 20000
-    base = rng.choice(list("ACGT"), size=N)
-    mut = base.copy()
-    idx = rng.random(N) < 0.02
-    mut[idx] = rng.choice(list("ACGT"), size=int(idx.sum()))
-    model = ModelFactory(alph.DNA).alignment_model(0.2)
-    g1 = build_leaf_graph("".join(base), alph.DNA)
-    g2 = build_leaf_graph("".join(mut), alph.DNA)
-    band, _ = plan_band(g1, g2, replace(AlignSettings(),
-                                        force_gap=True))
-    monkeypatch.setenv("PAGAN2_DEVICE_MSFOLD", "1")
-    args_d, _ = vpb.pallas_banded_args(g1, g2, model, AlignSettings(),
-                                       band[0], band[1])
-    monkeypatch.setenv("PAGAN2_DEVICE_MSFOLD", "0")
-    args_h, _ = vpb.pallas_banded_args(g1, g2, model, AlignSettings(),
-                                       band[0], band[1])
-    assert np.array_equal(np.asarray(args_d["ms"]),
-                          np.asarray(args_h["ms"]))
-    assert np.array_equal(np.asarray(args_d["sched_dev"]),
-                          np.asarray(args_h["sched_dev"]))

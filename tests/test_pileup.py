@@ -212,8 +212,8 @@ def test_deep_homopolymer_pileup_k5():
 
 def test_banded_reads_match_unbanded():
     """Read-vs-root alignments anchor from anchor_reads_min_sites=200
-    (the reference anchors every pair, node.cpp:87-152; measured 3.5x
-    e2e win) — the banded pileup must produce IDENTICAL rows to the
+    (the reference anchors every pair, node.cpp:87-152) — the banded
+    pileup must produce IDENTICAL rows to the
     unbanded one."""
     rng = np.random.default_rng(31)
     parts, total = [], 0

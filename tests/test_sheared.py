@@ -72,3 +72,15 @@ class TestShearedMatchesOracle:
         r2 = align_progressive(entries, tree, engine="auto")
         for e1, e2 in zip(r1.alignment, r2.alignment):
             assert e1.sequence == e2.sequence, e1.name
+
+
+@pytest.mark.parametrize("L,R,D", [(5, 7, 11), (40, 30, 69), (30, 40, 50),
+                                   (64, 64, 127), (7, 3, 5)])
+def test_host_shear_matches_device_shear(L, R, D):
+    """The host shear (row copies) equals the jnp gather shear cell for
+    cell, including the clipped cells outside each row's diagonals."""
+    import jax.numpy as jnp
+    from pagan2_tpu.align.viterbi_sheared import _shear, _shear_np
+    vals = np.random.default_rng(L * R).random((L, R))
+    assert np.array_equal(_shear_np(vals, D),
+                          np.asarray(_shear(jnp.asarray(vals), D)))

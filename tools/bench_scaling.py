@@ -8,16 +8,20 @@ executor unsharded and sharded over a jobs mesh, and reports
     {"jobs_per_s_1dev": A, "jobs_per_s_mesh": B, "n_devices": N,
      "efficiency": B / (A * N)}
 
-On real TPU hardware B approaches A*N for generations that fill the
+On real hardware B approaches A*N for generations that fill the
 mesh (each device fills its own job slice; the only overheads are the
 sharded dispatch and the result allgather). On the CPU backend with
 virtual devices the number is meaningless (all "devices" share the
 same cores) — run this on hardware.
 
-Usage:
-  PYTHONPATH=/root/repo python tools/bench_scaling.py [N_JOBS] [LEN]
-  # multi-host: run on every host with the same args
-  ... --coordinator host0:1234 --num-processes 2 --process-id $RANK
+Usage (from the repository root):
+  python tools/bench_scaling.py [N_JOBS] [LEN]
+  # several processes: one per card, each pinned to its own card
+  # (a JAX process reserves most of a card's memory when it starts)
+  for r in 0 1 2 3; do
+    python tools/bench_scaling.py --coordinator localhost:1234 \
+        --num-processes 4 --process-id $r --local-device $r &
+  done; wait
 """
 import argparse
 import os
@@ -37,13 +41,15 @@ def main():
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--local-device", type=int, default=None,
+                    help="local card this process drives")
     args = ap.parse_args()
 
     import jax
     if args.coordinator:
         from pagan2_tpu.parallel.multihost import init_multihost
         init_multihost(args.coordinator, args.num_processes,
-                       args.process_id)
+                       args.process_id, args.local_device)
     from pagan2_tpu.graph import build_leaf_graph
     from pagan2_tpu.models import ModelFactory, alphabets as alph
     from pagan2_tpu.align import AlignSettings
