@@ -21,6 +21,8 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 
 def _card():
     out = subprocess.run(
@@ -83,7 +85,8 @@ def _names(path):
 
 def phase_a():
     import bench
-    for fn in (bench.parity_linear, bench.parity_band, bench.parity_fanin):
+    for fn in (bench.parity_linear, bench.parity_band, bench.parity_fanin,
+               bench.parity_fanin_band):
         r = fn()
         print(f"phase a {r['fill']}: {r['case']}, kernel "
               f"{r['kernel_s']:.4f} s, scan core {r['scan_s']:.4f} s, "
@@ -91,6 +94,16 @@ def phase_a():
               f"{r['score_max_rel']:.3g}", flush=True)
         if not r["bp_identical"] or r["score_max_rel"] > 1e-6:
             raise RuntimeError(f"phase a {r['fill']}: kernel != scan core")
+        if "readback" in r:
+            sec, nbytes = r["readback"]
+            print(f"phase a {r['fill']} readback: {nbytes} bytes in "
+                  f"{sec:.4f} s ({nbytes / sec / 1e9:.2f} GB/s)",
+                  flush=True)
+        if "path_len" in r:
+            if not np.isfinite(r["path_score"]):
+                raise RuntimeError("phase a fanin band: no path")
+            print(f"phase a {r['fill']} path: {r['path_len']} steps, "
+                  f"score {r['path_score']:.6f}", flush=True)
 
 
 def phases_b_to_f(work, cpu):
@@ -108,24 +121,15 @@ def phases_b_to_f(work, cpu):
     _same_files(w("b_gpu.fas"), w("b_cpu.fas"))
 
     # (c) 454 amplicon pileup: its root's fan-in outgrows the kernel's
-    # caps, so its fills are over-cap scans, on the host CPU (=1) or
-    # on the card (=0)
+    # caps, so its fills are over-cap scans on the card
     reads = bench.pileup_reads(40, 384, 420)
     _write_fasta(w("reads.fas"), reads)
-    for mode in ("1", "0"):
-        os.environ["PAGAN2_HOST_SCAN"] = mode
-        try:
-            _run_cli(f"c host_scan={mode}",
-                     ["--pileup", "--homopolymer", "--use-consensus",
-                      "-q", w("reads.fas"), "-o", w(f"c{mode}")],
-                     gpu_fills=mode == "0")
-        finally:
-            del os.environ["PAGAN2_HOST_SCAN"]
-        placed = [n for n in _names(w(f"c{mode}.fas"))
-                  if re.fullmatch(r"r\d{3}", n)]
-        if len(placed) != len(reads):
-            raise RuntimeError(f"pileup placed {len(placed)} of "
-                               f"{len(reads)} reads")
+    _run_cli("c", ["--pileup", "--homopolymer", "--use-consensus",
+                   "-q", w("reads.fas"), "-o", w("c")])
+    placed = [n for n in _names(w("c.fas")) if re.fullmatch(r"r\d{3}", n)]
+    if len(placed) != len(reads):
+        raise RuntimeError(f"pileup placed {len(placed)} of "
+                           f"{len(reads)} reads")
 
     # (d) query placement onto (b)'s alignment and tree
     _write_fasta(w("queries.fas"), bench.query_reads(entries, 8, 300))

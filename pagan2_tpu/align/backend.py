@@ -5,14 +5,13 @@ A fill runs on the device JAX places its arrays on: the default device
 policy maps that device's platform and the kind of DP to exactly one
 implementation:
 
-=========  ===========================  ==========================
-platform   linear / band / fan-in       over-cap fan-in scan fills
-=========  ===========================  ==========================
-cpu        plain-JAX scan cores         on the CPU
-gpu        Hopper kernels (hopper.py)   on the GPU; on the host
-                                        CPU if PAGAN2_HOST_SCAN=1
-other      raises                       raises
-=========  ===========================  ==========================
+=========  ===========================
+platform   linear / band / fan-in
+=========  ===========================
+cpu        plain-JAX scan cores
+gpu        Hopper kernels (hopper.py)
+other      raises
+=========  ===========================
 
 A launch sharded over a device mesh is one jitted program, so it runs
 the scan cores on every platform.  Fan-in graphs beyond the kernel's
@@ -21,7 +20,6 @@ by the callers before the call; a kernel that fails raises.
 """
 from __future__ import annotations
 
-import os
 from collections import Counter
 
 import jax
@@ -75,15 +73,3 @@ def fill_impl(kind: str, *, sharded: bool = False, overcap: bool = False,
         return SCAN
     return impl
 
-
-def host_scan_device(overcap: bool, device=None):
-    """Device for a fan-in scan fill: None keeps it on the fill device;
-    PAGAN2_HOST_SCAN=1 sends over-cap fills on a GPU to the host CPU
-    device.  On the card the 454 amplicon pileup, whose fills are all
-    over-cap, ran faster there than offloaded (PERF.md), so the
-    offload is off by default."""
-    if _platform(device) == "cpu" or not overcap:
-        return None
-    if os.environ.get("PAGAN2_HOST_SCAN", "0") != "1":
-        return None
-    return jax.local_devices(backend="cpu")[0]

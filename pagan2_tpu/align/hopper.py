@@ -92,25 +92,26 @@ def _call_linear(rowf, rowi, colf, coli, tab, fsc, isc, ilo, W, T, nblk,
         jax.ShapeDtypeStruct((B, nblk), np.int32),
         jax.ShapeDtypeStruct(
             (B, nblk, 9, S) if not smem_state else (1,), np.float32),
+        jax.ShapeDtypeStruct((1,), np.int32),
     ))(rowf, rowi, colf, coli, tab, fsc, isc, ilo, T=np.int64(T),
        nblk=np.int64(nblk), smem_state=np.int64(smem_state))
     return out[0], out[1]
 
 
-def _call_fanin(rowf, rowi, colf, coli, tab, fsc, isc, D, W, Gr, PAD,
+def _call_fanin(rowf, rowi, colf, coli, tab, fsc, isc, ilo, W, Gr, PAD,
                 smem_state):
     """(bp (B, D, W) uint32, snap (B, 3, Gr, W) f32) from the fan-in
     kernel."""
     import jax
     _register()
-    B = rowf.shape[0]
+    B, D = ilo.shape
     out = jax.ffi.ffi_call("pagan2_fanin_fill", (
         jax.ShapeDtypeStruct((B, D, W), np.uint32),
         jax.ShapeDtypeStruct((B, 3, Gr, W), np.float32),
         jax.ShapeDtypeStruct(
             (B, 3 * Gr * (PAD + W)) if not smem_state else (1,),
             np.float32),
-    ))(rowf, rowi, colf, coli, tab, fsc, isc, Gr=np.int64(Gr),
+    ))(rowf, rowi, colf, coli, tab, fsc, isc, ilo, Gr=np.int64(Gr),
        PAD=np.int64(PAD), smem_state=np.int64(smem_state))
     return out[0], out[1]
 
@@ -177,18 +178,26 @@ def linear_fill(jobs: list[dict], D: int, W: int, ilo=None):
     return fetch_np(bp), fetch_np(fin)
 
 
+def _window_starts(ilo, B: int, D: int, unit_steps: bool):
+    """(B, D) int32 window starts (default all 0).  They never decrease,
+    and with unit_steps advance by at most one row per diagonal."""
+    if ilo is None:
+        return np.zeros((B, D), np.int32)
+    ilo = np.broadcast_to(np.asarray(ilo, np.int32), (B, D))
+    step = np.diff(ilo, axis=1)
+    if step.size and step.min() < 0:
+        raise ValueError("window start must never decrease")
+    if unit_steps and step.size and step.max() > 1:
+        raise ValueError("window start must advance by 0 or 1 rows per "
+                         "diagonal")
+    return ilo
+
+
 def linear_fill_device(jobs: list[dict], D: int, W: int, ilo=None):
     """linear_fill with its results left on the device."""
     B = len(jobs)
     moving = ilo is not None and bool(np.any(ilo))
-    if ilo is None:
-        ilo = np.zeros((B, D), np.int32)
-    else:
-        ilo = np.broadcast_to(np.asarray(ilo, np.int32), (B, D))
-        step = np.diff(ilo, axis=1)
-        if step.size and (step.min() < 0 or step.max() > 1):
-            raise ValueError("window start must advance by 0 or 1 rows "
-                             "per diagonal")
+    ilo = _window_starts(ilo, B, D, True)
     T, nblk, smem = linear_tiling(W, moving)
 
     def stk(k):
@@ -231,29 +240,37 @@ def fanin_job(inp: dict, Lr: int, Rc: int, KL: int, KR: int):
                 isc=np.array([L, R], np.int32))
 
 
-def fanin_fill(inputs: list[dict], Lp: int, Rp: int, KL: int, KR: int):
-    """Fill a batch of prepare_fanin dicts over the full Lp x Rp plane
-    (band bounds as masks).  Returns host (bp (B, D, Lp) uint32 in the
-    scan cores' packing, snaps (B, 3, Gr, Lp) ring at each job's corner
-    diagonal: snaps[b, m, g] holds diagonal L + R - 2 - g)."""
+def fanin_fill(inputs: list[dict], Lp: int, Rp: int, KL: int, KR: int,
+               W: int | None = None, ilo=None):
+    """Fill a batch of prepare_fanin dicts over the Lp + Rp - 1
+    diagonals of an Lp x Rp plane, in a window of W rows per diagonal
+    starting at row ilo[d] (default: the full plane, W = Lp, ilo = 0;
+    band bounds are masks inside the window).  Returns host (bp (B, D,
+    W) uint32 in the scan cores' packing, snaps (B, 3, Gr, W) ring at
+    each job's corner diagonal: snaps[b, m, g] holds diagonal
+    L + R - 2 - g), both indexed by window position."""
     from ..utils import fetch_np
-    bp, snap = fanin_fill_device(inputs, Lp, Rp, KL, KR)
+    bp, snap = fanin_fill_device(inputs, Lp, Rp, KL, KR, W, ilo)
     return fetch_np(bp), fetch_np(snap)
 
 
 def fanin_fill_device(inputs: list[dict], Lp: int, Rp: int, KL: int,
-                      KR: int):
+                      KR: int, W: int | None = None, ilo=None):
     """fanin_fill with its results left on the device."""
+    W = W or Lp
+    if W > Lp:
+        raise ValueError(f"window of {W} rows exceeds the {Lp}-row plane")
+    ilo = _window_starts(ilo, len(inputs), Lp + Rp - 1, False)
     jobs = [fanin_job(inp, Lp, Rp, KL, KR) for inp in inputs]
     PAD = max(inp["OL"] for inp in inputs)
     Gr = PAD + max(inp["OR"] for inp in inputs) + 1
-    smem = int(3 * Gr * (PAD + Lp) * 4 <= SMEM_BUDGET)
+    smem = int(3 * Gr * (PAD + W) * 4 <= SMEM_BUDGET)
 
     def stk(k):
         return np.ascontiguousarray(np.stack([j[k] for j in jobs]))
     return _call_fanin(stk("rowf"), stk("rowi"), stk("colf"),
                        stk("coli"), stk("tab"), stk("fsc"), stk("isc"),
-                       Lp + Rp - 1, Lp, Gr, PAD, smem)
+                       np.ascontiguousarray(ilo), W, Gr, PAD, smem)
 
 
 if __name__ == "__main__":

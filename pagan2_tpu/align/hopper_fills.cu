@@ -42,6 +42,12 @@ constexpr int kMaxK = 8;                       // fan-in edge slots per side
 // (ilo == 0); block k then waits for block k-1 to publish diagonal
 // d-1, whose last row it reads as a one-cell halo.  A moving window
 // (anchored band) always runs in one block.
+//
+// Blocks take their (job, k) tile from an atomic ticket in the order
+// they start, not from blockIdx: CUDA neither orders the dispatch of
+// blocks nor keeps them resident together, but a block that holds
+// ticket t started after the holder of t - 1, its predecessor, which is
+// therefore resident or finished, so the wait always ends.
 struct LinArgs {
   const float* rowf;     // (B, 3, Lr): lw, gext_i, open_l of row i-1
   const int32_t* rowi;   // (B, 3, Lr): left state, band lo, band hi
@@ -56,6 +62,7 @@ struct LinArgs {
   float* bnd;            // (B, nblk, D, 3) last-row values per block
   int32_t* prog;         // (B, nblk) last diagonal each block published
   float* gst;            // (B, nblk, 9, T + 2) state when not in smem
+  int32_t* ticket;       // (1,) next tile, zeroed before the launch
   int Lr, Rc, nf, D, W, T, nblk;
 };
 
@@ -63,7 +70,10 @@ template <bool kSmem>
 __global__ void __launch_bounds__(kMaxThreads)
 linear_fill_kernel(LinArgs a) {
   extern __shared__ float smem[];
-  const int k = blockIdx.x, b = blockIdx.y;
+  __shared__ int tile;
+  if (threadIdx.x == 0) tile = atomicAdd(a.ticket, 1);
+  __syncthreads();
+  const int k = tile % a.nblk, b = tile / a.nblk;
   const int T = a.T, S = T + 2, W = a.W, D = a.D;
   // 3 generations (d, d-1, d-2) x 3 matrices, each S = T + 2 cells:
   // index 0 is the halo (position p0 - 1), index T + 1 a sentinel
@@ -206,8 +216,12 @@ linear_fill_kernel(LinArgs a) {
 }
 
 // ---------------------------------------------------------------------
-// Fan-in fill: full-width rows (position = row i), a ring of the last
-// Gr diagonals of M/X/Y, left pad PAD >= the largest left edge offset.
+// Fan-in fill over a window of W rows per diagonal: position t on
+// diagonal d is row ilo[d] + t (the full plane is ilo == 0, W = Lr).
+// A ring of the last Gr diagonals of M/X/Y holds each diagonal in its
+// own window; window starts never decrease, so a source row lies at
+// most PAD (>= the largest left edge offset) positions left of the
+// ring's row 0, and a source outside its diagonal's window is -inf.
 struct FanArgs {
   const float* rowf;     // (B, 1 + 2 KL, Lr): gext_i, llw[KL], lopen[KL]
   const int32_t* rowi;   // (B, 3 + KL, Lr): left state, band lo, hi, loff[KL]
@@ -216,6 +230,7 @@ struct FanArgs {
   const float* tab;      // (B, nf * nf)
   const float* fsc;      // (B, 2): log non-gap, log gap-open
   const int32_t* isc;    // (B, 2): L, R
+  const int32_t* ilo;    // (B, D) window start per diagonal
   uint32_t* bp;          // (B, D, W) codes bm | bx << 16 | by << 24
   float* snap;           // (B, 3, Gs, W) ring at the corner diagonal
   float* gring;          // (B, 3 * Gr * (PAD + W)) ring when not in smem
@@ -246,27 +261,34 @@ fanin_fill_kernel(FanArgs a) {
   const int nf = a.nf;
   const float lng = a.fsc[2 * b], lgo = a.fsc[2 * b + 1];
   const int L = a.isc[2 * b], R = a.isc[2 * b + 1];
+  const int32_t* ilo = a.ilo + (size_t)b * D;
   uint32_t* bp = a.bp + (size_t)b * D * W;
   const int cornerd = L + R - 2;
   const int dend = min(cornerd, D - 1);
-  // plane of ring slot sl for matrix m (0 M, 1 X, 2 Y), at row 0
+  // plane of ring slot sl for matrix m (0 M, 1 X, 2 Y), at position 0
   auto plane = [&](int sl, int m) { return ring + (sl * 3 + m) * S + PAD; };
 
   for (int q = threadIdx.x; q < 3 * Gr * S; q += blockDim.x) ring[q] = kNeg;
-  for (int i = threadIdx.x; i < W; i += blockDim.x) bp[i] = kFanNone;
+  for (int t = threadIdx.x; t < W; t += blockDim.x) bp[t] = kFanNone;
   __syncthreads();
-  if (threadIdx.x == 0) plane(0, 0)[0] = 0.f;      // M(0, 0)
+  if (threadIdx.x == 0 && ilo[0] == 0) plane(0, 0)[0] = 0.f;  // M(0, 0)
 
   for (int d = 1; d <= dend; ++d) {
     __syncthreads();
     const int dm = d % Gr;
     // ring slot of diagonal d - back, for 0 <= back < Gr
     auto slot = [&](int back) { return dm >= back ? dm - back : dm - back + Gr; };
+    // matrix m of diagonal d - back at row `row`
+    auto at = [&](int back, int m, int row) {
+      const int q = row - ilo[d - back];
+      return q < W ? plane(slot(back), m)[q] : kNeg;
+    };
+    const int il = ilo[d];
     float* M0 = plane(dm, 0);
     float* X0 = plane(dm, 1);
     float* Y0 = plane(dm, 2);
-    for (int i = threadIdx.x; i < W; i += blockDim.x) {
-      const int j = d - i;
+    for (int t = threadIdx.x; t < W; t += blockDim.x) {
+      const int i = il + t, j = d - i;
       bool valid = i < L && j >= 0 && j < R;
       if (valid) valid = j >= blo[i] && j <= bhi[i];
       float X = kNeg, Y = kNeg, M = kNeg;
@@ -289,10 +311,9 @@ fanin_fill_kernel(FanArgs a) {
           for (int e = 0; e < kMaxK; ++e) {
             const int o = lo[e];
             if (o <= 0) continue;
-            const int sl = slot(o);
-            const float c0 = plane(sl, 1)[i - o] + gj;
-            const float c1 = plane(sl, 2)[i - o] + lgo;
-            const float c2 = (plane(sl, 0)[i - o] + lng) + lopen[e * Lr + i];
+            const float c0 = at(o, 1, i - o) + gj;
+            const float c1 = at(o, 2, i - o) + lgo;
+            const float c2 = (at(o, 0, i - o) + lng) + lopen[e * Lr + i];
             if (c0 > best) { best = c0; code = 3 * e; }
             if (c1 > best) { best = c1; code = 3 * e + 1; }
             if (c2 > best) { best = c2; code = 3 * e + 2; }
@@ -307,10 +328,9 @@ fanin_fill_kernel(FanArgs a) {
           for (int e = 0; e < kMaxK; ++e) {
             const int r = ro[e];
             if (r <= 0) continue;
-            const int sl = slot(r);
-            const float c0 = plane(sl, 2)[i] + ge;
-            const float c1 = plane(sl, 1)[i] + lgo;
-            const float c2 = (plane(sl, 0)[i] + lng) + ropen[e * Rc + j];
+            const float c0 = at(r, 2, i) + ge;
+            const float c1 = at(r, 1, i) + lgo;
+            const float c2 = (at(r, 0, i) + lng) + ropen[e * Rc + j];
             if (c0 > best) { best = c0; code = 3 * e; }
             if (c1 > best) { best = c1; code = 3 * e + 1; }
             if (c2 > best) { best = c2; code = 3 * e + 2; }
@@ -337,11 +357,10 @@ fanin_fill_kernel(FanArgs a) {
               const int r = ro[er];
               if (r <= 0 || s + r > d) continue;
               const float base = lwb + rw[er];
-              const int sl = slot(s + r);
               const uint32_t c0 = 3 * (el * KR + er);
-              const float v0 = (plane(sl, 0)[i - s] + lng) + base;
-              const float v1 = plane(sl, 1)[i - s] + base;
-              const float v2 = plane(sl, 2)[i - s] + base;
+              const float v0 = (at(s + r, 0, i - s) + lng) + base;
+              const float v1 = at(s + r, 1, i - s) + base;
+              const float v2 = at(s + r, 2, i - s) + base;
               if (v0 > best) { best = v0; code = c0; }
               if (v1 > best) { best = v1; code = c0 + 1; }
               if (v2 > best) { best = v2; code = c0 + 2; }
@@ -350,24 +369,24 @@ fanin_fill_kernel(FanArgs a) {
           if (isfinite(best)) { M = best; cm = code; }
         }
       }
-      M0[i] = M;
-      X0[i] = X;
-      Y0[i] = Y;
-      bp[(size_t)d * W + i] = cm + (cx << 16) + (cy << 24);
+      M0[t] = M;
+      X0[t] = X;
+      Y0[t] = Y;
+      bp[(size_t)d * W + t] = cm + (cx << 16) + (cy << 24);
     }
     if (d == cornerd) {
       __syncthreads();
       const int Gs = a.Gs;
       float* snap = a.snap + (size_t)b * 3 * Gs * W;
       for (int q = threadIdx.x; q < 3 * Gs * W; q += blockDim.x) {
-        const int i = q % W, g = (q / W) % Gs, m = q / (W * Gs);
-        snap[q] = (d - g >= 0 && g < Gr) ? plane(slot(g), m)[i] : kNeg;
+        const int t = q % W, g = (q / W) % Gs, m = q / (W * Gs);
+        snap[q] = (d - g >= 0 && g < Gr) ? plane(slot(g), m)[t] : kNeg;
       }
     }
   }
   for (int d = dend + 1; d < D; ++d)
-    for (int i = threadIdx.x; i < W; i += blockDim.x)
-      bp[(size_t)d * W + i] = kFanNone;
+    for (int t = threadIdx.x; t < W; t += blockDim.x)
+      bp[(size_t)d * W + t] = kFanNone;
 }
 
 ffi::Error check(cudaError_t e) {
@@ -397,7 +416,8 @@ ffi::Error LinearFillImpl(
     ffi::Buffer<ffi::S32> ilo, ffi::ResultBuffer<ffi::U8> bp,
     ffi::ResultBuffer<ffi::F32> fin, ffi::ResultBuffer<ffi::F32> bnd,
     ffi::ResultBuffer<ffi::S32> prog, ffi::ResultBuffer<ffi::F32> gst,
-    int64_t T, int64_t nblk, int64_t smem_state) {
+    ffi::ResultBuffer<ffi::S32> ticket, int64_t T, int64_t nblk,
+    int64_t smem_state) {
   auto bd = bp->dimensions();            // (B, D, W)
   LinArgs a;
   a.rowf = rowf.typed_data();
@@ -413,6 +433,7 @@ ffi::Error LinearFillImpl(
   a.bnd = bnd->typed_data();
   a.prog = prog->typed_data();
   a.gst = gst->typed_data();
+  a.ticket = ticket->typed_data();
   a.Lr = (int)rowf.dimensions()[2];
   a.Rc = (int)colf.dimensions()[2];
   const int64_t nf2 = tab.dimensions()[1];
@@ -428,7 +449,10 @@ ffi::Error LinearFillImpl(
   ffi::Error err = check(cudaMemsetAsync(prog->typed_data(), 0xFF,
                                          prog->size_bytes(), stream));
   if (err.failure()) return err;
-  const dim3 grid(a.nblk, B);
+  err = check(cudaMemsetAsync(ticket->typed_data(), 0,
+                              ticket->size_bytes(), stream));
+  if (err.failure()) return err;
+  const int grid = a.nblk * B;
   const int threads = block_threads(a.T);
   if (smem_state) {
     const size_t smem = (size_t)9 * (a.T + 2) * sizeof(float);
@@ -446,7 +470,8 @@ ffi::Error FaninFillImpl(
     ffi::Buffer<ffi::S32> rowi, ffi::Buffer<ffi::F32> colf,
     ffi::Buffer<ffi::S32> coli, ffi::Buffer<ffi::F32> tab,
     ffi::Buffer<ffi::F32> fsc, ffi::Buffer<ffi::S32> isc,
-    ffi::ResultBuffer<ffi::U32> bp, ffi::ResultBuffer<ffi::F32> snap,
+    ffi::Buffer<ffi::S32> ilo, ffi::ResultBuffer<ffi::U32> bp,
+    ffi::ResultBuffer<ffi::F32> snap,
     ffi::ResultBuffer<ffi::F32> gring, int64_t Gr, int64_t PAD,
     int64_t smem_state) {
   auto bd = bp->dimensions();            // (B, D, W)
@@ -458,6 +483,7 @@ ffi::Error FaninFillImpl(
   a.tab = tab.typed_data();
   a.fsc = fsc.typed_data();
   a.isc = isc.typed_data();
+  a.ilo = ilo.typed_data();
   a.bp = bp->typed_data();
   a.snap = snap->typed_data();
   a.gring = gring->typed_data();
@@ -474,9 +500,10 @@ ffi::Error FaninFillImpl(
   a.Gs = (int)snap->dimensions()[2];
   a.PAD = (int)PAD;
   const int B = (int)bd[0];
-  if (a.nf * a.nf != nf2 || a.W > a.Lr || a.KL > kMaxK || a.KR > kMaxK)
+  if (a.nf * a.nf != nf2 || a.W > a.Lr || a.KL > kMaxK || a.KR > kMaxK ||
+      ilo.dimensions()[0] != B || ilo.dimensions()[1] != a.D)
     return ffi::Error::InvalidArgument(
-        "fan-in fill: bad table, width or edge slots");
+        "fan-in fill: bad table, width, edge slots or window starts");
   const int threads = block_threads(a.W);
   if (smem_state) {
     const size_t smem = (size_t)3 * a.Gr * (a.PAD + a.W) * sizeof(float);
@@ -508,6 +535,7 @@ XLA_FFI_DEFINE_HANDLER_SYMBOL(
         .Ret<ffi::Buffer<ffi::F32>>()
         .Ret<ffi::Buffer<ffi::S32>>()
         .Ret<ffi::Buffer<ffi::F32>>()
+        .Ret<ffi::Buffer<ffi::S32>>()
         .Attr<int64_t>("T")
         .Attr<int64_t>("nblk")
         .Attr<int64_t>("smem_state"));
@@ -522,6 +550,7 @@ XLA_FFI_DEFINE_HANDLER_SYMBOL(
         .Arg<ffi::Buffer<ffi::S32>>()
         .Arg<ffi::Buffer<ffi::F32>>()
         .Arg<ffi::Buffer<ffi::F32>>()
+        .Arg<ffi::Buffer<ffi::S32>>()
         .Arg<ffi::Buffer<ffi::S32>>()
         .Ret<ffi::Buffer<ffi::U32>>()
         .Ret<ffi::Buffer<ffi::F32>>()

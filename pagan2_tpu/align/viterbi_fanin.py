@@ -844,6 +844,32 @@ def finish_fanin(job_inp, bp, snaps, ilo, left, right, model, settings,
     return path, end
 
 
+def band_window(inp: dict, band, Lp: int, Rp: int):
+    """(W, ilo) of one fan-in fill over an Lp x Rp plane: the band's
+    window of W rows starting at row ilo[d] on diagonal d, or the whole
+    plane (Lp, 0) when there is no band or its window is as wide.  Sets
+    (or clears) inp's band masks to match."""
+    L, R = inp["L"], inp["R"]
+    D = Lp + Rp - 1
+    ilo = np.zeros(D, np.int32)
+    if band is None:
+        inp.pop("band_upper", None)
+        inp.pop("band_lower", None)
+        return Lp, ilo
+    inp["band_upper"] = np.clip(np.asarray(band[0][:L], np.int64),
+                                0, R - 1).astype(np.int32)
+    inp["band_lower"] = np.clip(np.asarray(band[1][:L], np.int64),
+                                0, R - 1).astype(np.int32)
+    from .viterbi_banded import band_windows
+    ilo_r, Wreal = band_windows(band[0], band[1], L, R)
+    W = _bucket(Wreal)
+    if W >= Lp:
+        return Lp, ilo
+    ilo[:len(ilo_r)] = ilo_r
+    ilo[len(ilo_r):] = ilo_r[-1] if len(ilo_r) else 0
+    return W, ilo
+
+
 def fanin_align_path(left: SequenceGraph, right: SequenceGraph,
                      model: EvolModel, settings: AlignSettings,
                      left_branch_length: float = 0.0,
@@ -853,11 +879,11 @@ def fanin_align_path(left: SequenceGraph, right: SequenceGraph,
     banded when an anchor band is given. Falls back to the full matrix
     if the banded DP dead-ends (viterbi_alignment.cpp:298-317).
     Handles ANY fan-in: bounded-offset graphs take the one-hot scan
-    core (the Hopper kernel on a GPU, band bounds as masks);
-    beyond-cap graphs (deep homopolymer runs, K > 8) take the generic
-    gather core — windowed, O(G x W) ring memory, never a dense
-    plane."""
-    from .backend import fill_impl, count_fill, host_scan_device, KERNEL
+    core (the Hopper kernel on a GPU); beyond-cap graphs (deep
+    homopolymer runs, K > 8) take the generic gather core.  A band
+    runs in its window of W rows per diagonal on either fill, so the
+    backpointer plane is D x W, never the dense D x Lp plane."""
+    from .backend import fill_impl, count_fill, KERNEL
     inp = prepare_fanin(left, right, model, settings, dtype)
     L, R = inp["L"], inp["R"]
     # bucketed K: reuse one compiled kernel across the K creep
@@ -865,54 +891,28 @@ def fanin_align_path(left: SequenceGraph, right: SequenceGraph,
     KL, KR = _k_bucket(inp["KL"]), _k_bucket(inp["KR"])
     G = _g_bucket(inp["OL"] + inp["OR"])
     Lp, Rp = _bucket(L), _bucket(R)
-    D = Lp + Rp - 1
     overcap = fanin_overcap(KL, KR, inp["OL"], inp["OR"])
-
-    def set_band(bnd):
-        if bnd is not None:
-            inp["band_upper"] = np.clip(np.asarray(bnd[0][:L], np.int64),
-                                        0, R - 1).astype(np.int32)
-            inp["band_lower"] = np.clip(np.asarray(bnd[1][:L], np.int64),
-                                        0, R - 1).astype(np.int32)
-        else:
-            inp.pop("band_upper", None)
-            inp.pop("band_lower", None)
 
     if fill_impl("fanin", overcap=overcap) == KERNEL:
         from .hopper import fanin_fill
 
         def run(bnd):
-            set_band(bnd)
-            bp, snaps = fanin_fill([inp], Lp, Rp, KL, KR)
+            W, ilo = band_window(inp, bnd, Lp, Rp)
+            bp, snaps = fanin_fill([inp], Lp, Rp, KL, KR, W=W, ilo=ilo)
             count_fill(KERNEL)
-            return bp[0], tuple(snaps[0]), np.zeros(D, np.int32)
+            return bp[0], tuple(snaps[0]), ilo
     else:
         def run(bnd):
-            if bnd is not None:
-                from .viterbi_banded import band_windows
-                ilo_r, Wreal = band_windows(bnd[0], bnd[1], L, R)
-                W = _bucket(Wreal)
-                if W >= Lp:
-                    W, ilo = Lp, np.zeros(D, np.int32)
-                else:
-                    ilo = np.zeros(D, np.int32)
-                    ilo[:len(ilo_r)] = ilo_r
-                    ilo[len(ilo_r):] = ilo_r[-1] if len(ilo_r) else 0
-            else:
-                W, ilo = Lp, np.zeros(D, np.int32)
-            set_band(bnd)
+            W, ilo = band_window(inp, bnd, Lp, Rp)
             args = stack_fanin([inp], Lp, Rp, KL, KR, G, W=W, ilo=ilo,
                                dtype=dtype)
-            hdev = host_scan_device(overcap)
-            if hdev is not None:
-                args = [jax.device_put(a, hdev) for a in args]
             # offsets are static kernel-key dims like K: bucket them so
             # the creep reuses compiled kernels (matches the executor
             # batch path)
             fill = get_fanin_fill(KL, KR, G, W, OLm=_k_bucket(inp["OL"]),
                                   ORm=_k_bucket(inp["OR"]))
             bp, sM, sX, sY = fill(*args)
-            count_fill("scan", hdev)
+            count_fill("scan")
             from ..utils import fetch_np
             return (fetch_np(bp)[:, 0, :],
                     (fetch_np(sM)[0], fetch_np(sX)[0], fetch_np(sY)[0]),

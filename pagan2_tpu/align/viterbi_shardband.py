@@ -8,7 +8,7 @@ rows plus an H-lane halo from its left neighbour. Within-step
 dependencies only ever reach one lane to the left (the X/M shifts), so
 the halo degrades by one lane per diagonal and a single
 `lax.ppermute` of the six wavefront vectors every H diagonals keeps all
-owned lanes exact — the collective rides ICI once per H steps instead
+owned lanes exact — the collective runs once per H steps instead
 of once per step.
 
 The step body is the exact recurrence of batched_sheared_core (same
@@ -84,12 +84,14 @@ def _build_fill(mesh: Mesh, H: int):
     """Jitted shard_map fill for a ('band', n) mesh."""
     n_dev = int(np.prod(mesh.devices.shape))
 
-    def fill(ms_ov, gj_rext, orp_rext, rw_rext, gexti_ov, olp_ov, lw_ov,
-             vlo_ov, vhi_ov, scal, iscal):
-        # local views: ms_ov (Dpk, wloc); *_ov (wloc,); rext replicated
-        Dpk, wloc = ms_ov.shape
+    def fill(TL_ov, rs_rext, gj_rext, orp_rext, rw_rext, gexti_ov, olp_ov,
+             lw_ov, vlo_ov, vhi_ov, scal, iscal, blocks):
+        # local views: TL_ov (wloc, nf) log-score row of each lane's
+        # left state; *_ov (wloc,); rext vectors and blocks (the
+        # indices of the H-diagonal blocks) replicated
+        wloc = TL_ov.shape[0]
         w = wloc - H
-        f = ms_ov.dtype
+        f = TL_ov.dtype
         big_neg = jnp.array(NEG, f)
         k = lax.axis_index("band")
         lng, lgo = scal[0], scal[1]
@@ -116,21 +118,21 @@ def _build_fill(mesh: Mesh, H: int):
                 jnp.concatenate([halo[s], states[s][H:]])
                 for s in range(6))
 
-        def block(carry, xs):
+        def block(carry, b):
             states = refresh(carry)
             M1, X1, Y1, M2, X2, Y2 = states
-            b, ms_blk = xs
             bps = []
             final_upd = jnp.full((3,), big_neg, f)
             have_hit = jnp.array(False)
             for t in range(H):
                 d = 1 + b * H + t
-                ms = ms_blk[t]
                 # j-indexed rows: value[l] = vec[d - ii[l]]; the rext
                 # vectors carry H extra front zeros so the slice start
                 # (clamped on padded diagonals, which are fully masked)
                 # stays in range for every shard
                 start = slice_base - d + k * w
+                rs = lax.dynamic_slice_in_dim(rs_rext, start, wloc)
+                ms = jnp.take_along_axis(TL_ov, rs[:, None], axis=1)[:, 0]
                 gj = lax.dynamic_slice_in_dim(gj_rext, start, wloc)
                 orp = lax.dynamic_slice_in_dim(orp_rext, start, wloc)
                 rw = lax.dynamic_slice_in_dim(rw_rext, start, wloc)
@@ -190,12 +192,8 @@ def _build_fill(mesh: Mesh, H: int):
         M1 = jnp.where(ii == 0, jnp.zeros((wloc,), f), allneg)
         init = (M1, allneg, allneg, allneg, allneg, allneg)
 
-        nblk = Dpk // H
-        bs = jnp.arange(nblk)
-        ms_blocks = ms_ov.reshape(nblk, H, wloc)
-        _, (bp_blocks, finals, hits) = lax.scan(block, init,
-                                                (bs, ms_blocks))
-        bp = bp_blocks.reshape(nblk * H, w)
+        _, (bp_blocks, finals, hits) = lax.scan(block, init, blocks)
+        bp = bp_blocks.reshape(blocks.shape[0] * H, w)
         # the corner diagonal lands in exactly one block; pick that
         # block's capture, then resolve the owner across devices
         fin = jnp.where(hits[:, None], finals, big_neg)
@@ -204,9 +202,9 @@ def _build_fill(mesh: Mesh, H: int):
         return bp, final
 
     specs = dict(
-        in_specs=(P(None, "band"), P(), P(), P(), P("band"),
+        in_specs=(P("band"), P(), P(), P(), P(), P("band"),
                   P("band"), P("band"), P("band"), P("band"),
-                  P(), P()),
+                  P(), P(), P()),
         out_specs=(P(None, "band"), P()))
     try:
         from jax import shard_map
@@ -230,8 +228,12 @@ def shardband_fill(mesh: Mesh, args, H: int = HALO):
 def shardband_args(left: SequenceGraph, right: SequenceGraph,
                    model: EvolModel, settings: AlignSettings,
                    n_dev: int, band=None, dtype=np.float64, H: int = HALO):
-    """Host prep: overlapped lane shards + replicated rext vectors."""
-    inp = prepare_sheared(left, right, model, settings, dtype)
+    """Host prep: overlapped lane shards + replicated rext vectors,
+    all O(L + R): each lane carries the log-score row of its left
+    state and the fill looks match scores up by the right state, so no
+    O(L x R) table is built on the host or on any one device."""
+    inp = prepare_sheared(left, right, model, settings, dtype,
+                          with_ms=False)
     L, R = inp["L"], inp["R"]
     w = _lane_split(L, n_dev)
     W = w * n_dev
@@ -239,14 +241,12 @@ def shardband_args(left: SequenceGraph, right: SequenceGraph,
     Dn = W + Rp - 2
     Dpk = -(-Dn // H) * H
 
-    # sheared match scores on the (possibly wider) padded lane grid —
-    # sheared on HOST (_shear_np): a one-device jnp shear would place
-    # the full dense plane on a single chip, the very thing this module
-    # exists to avoid
-    ms = np.zeros((W, Rp), dtype)
-    ms[:L, :R] = inp["ms"]
-    from .viterbi_sheared import _shear_np
-    ms_sh = np.ascontiguousarray(_shear_np(ms, Dpk + 1))[1:]  # d=1..Dpk
+    # states index the table python-style, as prepare_sheared's
+    # log_score[np.ix_(lstates, rstates)] does
+    nf = model.log_score.shape[0]
+    TL = np.zeros((W, nf), dtype)
+    TL[:L] = model.log_score[np.asarray(left.states[:L], np.int64)]
+    rstates = np.mod(np.asarray(right.states[:R], np.int64), nf)
 
     # overlapped (halo+owned) per-lane shards
     def ov(vec, fill=0.0, dt=None):
@@ -273,24 +273,16 @@ def shardband_args(left: SequenceGraph, right: SequenceGraph,
     vlo_ov = _overlap_shard(vlo_f, n_dev, w, H, np.int32(1))
     vhi_ov = _overlap_shard(vhi_f, n_dev, w, H, np.int32(0))
 
-    # ms itself needs the overlap too: rebuild per-lane columns
-    ms_ov = np.zeros((Dpk, n_dev * (H + w)), dtype)
-    for k in range(n_dev):
-        lo = k * w - H
-        src_lo = max(lo, 0)
-        src_hi = k * w + w
-        ms_ov[:, k * (H + w) + (src_lo - lo):
-              k * (H + w) + (src_hi - lo)] = ms_sh[:, src_lo:src_hi]
-
     # reversed column vectors with H extra front zeros so sharded
     # slice starts stay non-negative
-    def rext(vec):
-        v = np.zeros(Rp, dtype)
+    def rext(vec, dt=dtype):
+        v = np.zeros(Rp, dt)
         v[:len(vec)] = vec
         return jnp.asarray(np.concatenate(
-            [np.zeros(H, dtype), np.zeros(W - 1, dtype), v[::-1],
-             np.zeros(W, dtype)]))
+            [np.zeros(H, dt), np.zeros(W - 1, dt), v[::-1],
+             np.zeros(W, dt)]))
 
+    rs_rext = rext(rstates, np.int32)
     gj_rext = rext(inp["gext_j"])
     orp_rext = rext(inp["open_r_shifted"])
     rw_rext = rext(inp["rw"])
@@ -302,9 +294,11 @@ def shardband_args(left: SequenceGraph, right: SequenceGraph,
     # and stays >= 0 for every real diagonal (the H front zeros absorb
     # the halo offset; only fully-masked padded diagonals clamp)
     iscal = jnp.asarray(np.array([L, R, W + Rp - 2], np.int32))
-    args = (jnp.asarray(ms_ov), gj_rext, orp_rext, rw_rext,
+    args = (jnp.asarray(_overlap_shard2(TL, n_dev, w, H, 0.0)), rs_rext,
+            gj_rext, orp_rext, rw_rext,
             jnp.asarray(gexti), jnp.asarray(olp), jnp.asarray(lw),
-            jnp.asarray(vlo_ov), jnp.asarray(vhi_ov), scal, iscal)
+            jnp.asarray(vlo_ov), jnp.asarray(vhi_ov), scal, iscal,
+            jnp.arange(Dpk // H, dtype=jnp.int32))
     return args, dict(L=L, R=R, w=w, W=W, Dpk=Dpk, inp=inp)
 
 

@@ -5,8 +5,8 @@ Equivalent of the reference's PAML-derived eigenQREV / computePMatrix
 done the numpy way: a reversible Q with stationary distribution pi is
 similar to the symmetric matrix  S = D Q D^{-1}  with D = diag(sqrt(pi)),
 so  Q = U diag(lam) V  with  U = D^{-1} R,  V = R^T D  for the orthonormal
-eigenvectors R of S.  P(t) = U exp(lam t) V, computed densely so it runs
-on the MXU when jitted.
+eigenvectors R of S.  P(t) = U exp(lam t) V, computed densely (a matrix
+product when jitted).
 """
 from __future__ import annotations
 

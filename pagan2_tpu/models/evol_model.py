@@ -134,8 +134,8 @@ class EvolModel:
 
 class ModelFactory:
     """Builds EvolModels for a data type. Eigendecomposition happens once;
-    each ``alignment_model(d)`` is a dense reconstruction (MXU-friendly
-    when traced under jit via the jax path in ops.substitution)."""
+    each ``alignment_model(d)`` is a dense reconstruction (a matrix
+    product when traced under jit via the jax path in ops.substitution)."""
 
     def __init__(self, data_type: str, *,
                  dna_pi: np.ndarray | None = None,

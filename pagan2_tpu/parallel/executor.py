@@ -524,8 +524,7 @@ def _fanin_batch_paths(jobs, idxs, Lp, Rp, mesh, n_shards, dtype):
                                        get_fanin_fill, finish_fanin,
                                        fanin_overcap, _g_bucket,
                                        _k_bucket)
-    from ..align.backend import (fill_impl, count_fill, host_scan_device,
-                                 KERNEL)
+    from ..align.backend import fill_impl, count_fill, KERNEL
 
     B = len(idxs)
     pad_to = 1
@@ -592,12 +591,6 @@ def _fanin_batch_paths(jobs, idxs, Lp, Rp, mesh, n_shards, dtype):
         # ilo_ext (arg 12) is the shared window schedule: replicate it
         args = [jax.device_put(a, spec) if k != 12 else a
                 for k, a in enumerate(args)]
-    else:
-        # over-cap batches on a GPU run on the host CPU device by
-        # default (backend.host_scan_device)
-        hdev = host_scan_device(overcap)
-        if hdev is not None:
-            args = [jax.device_put(a, hdev) for a in args]
     # offsets are static kernel-key dims like K: bucket them so the
     # creep (one homopolymer run at a time) reuses compiled kernels
     fill = get_fanin_fill(KL, KR, G, Lp, OLm=_k_bucket(OLx),

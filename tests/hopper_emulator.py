@@ -103,18 +103,19 @@ def emulate_linear(rowf, rowi, colf, coli, tab, fsc, isc, ilo, W, T, nblk,
     return bp, fin
 
 
-def emulate_fanin(rowf, rowi, colf, coli, tab, fsc, isc, D, W, Gr, PAD,
+def emulate_fanin(rowf, rowi, colf, coli, tab, fsc, isc, ilo, W, Gr, PAD,
                   smem_state):
-    rowf, rowi, colf, coli, tab, fsc, isc = (
-        np.asarray(a) for a in (rowf, rowi, colf, coli, tab, fsc, isc))
-    B = rowf.shape[0]
+    rowf, rowi, colf, coli, tab, fsc, isc, ilo = (
+        np.asarray(a) for a in (rowf, rowi, colf, coli, tab, fsc, isc,
+                                ilo))
+    B, D = ilo.shape
     KL = rowi.shape[1] - 3
     KR = coli.shape[1] - 1
     nf = int(round(np.sqrt(tab.shape[1])))
     none = np.uint32(65535 + (255 << 16) + (255 << 24))
     bp = np.full((B, D, W), none, np.uint32)
     snap = np.full((B, 3, Gr, W), NEG, np.float32)
-    i = np.arange(W)
+    pos_w = np.arange(W)
     for b in range(B):
         L, R = (int(v) for v in isc[b])
         lng, lgo = fsc[b]
@@ -129,14 +130,19 @@ def emulate_fanin(rowf, rowi, colf, coli, tab, fsc, isc, D, W, Gr, PAD,
         rs = coli[b, 0]
         roff = coli[b, 1:]
         tb = tab[b]
-        ring = np.full((Gr, 3, PAD + W), NEG, np.float32)
-        ring[0, 0, PAD] = 0.0
+        # one position past the window stays -inf (reads beyond it)
+        ring = np.full((Gr, 3, PAD + W + 1), NEG, np.float32)
+        if ilo[b, 0] == 0:
+            ring[0, 0, PAD] = 0.0
 
-        def src(dd, m, pos):
-            """ring value of diagonal dd (>= 0 where used) at row pos."""
-            return ring[np.mod(dd, Gr), m, PAD + pos]
+        def src(dd, m, row):
+            """ring value of diagonal dd (>= 0 where used) at row `row`,
+            -inf outside that diagonal's window."""
+            q = np.minimum(row - ilo[b, dd], W)
+            return ring[np.mod(dd, Gr), m, PAD + q]
 
         for d in range(1, min(L + R - 2, D - 1) + 1):
+            i = ilo[b, d] + pos_w
             j = d - i
             valid = (i < L) & (j >= 0) & (j < R)
             ic = np.clip(i, 0, L - 1)
@@ -193,9 +199,9 @@ def emulate_fanin(rowf, rowi, colf, coli, tab, fsc, isc, D, W, Gr, PAD,
             oky = valid & (j > 0) & np.isfinite(bestY)
             okm = valid & (i > 0) & (j > 0) & np.isfinite(bestM)
             slot = d % Gr
-            ring[slot, 0, PAD:] = np.where(okm, bestM, NEG)
-            ring[slot, 1, PAD:] = np.where(okx, bestX, NEG)
-            ring[slot, 2, PAD:] = np.where(oky, bestY, NEG)
+            ring[slot, 0, PAD:PAD + W] = np.where(okm, bestM, NEG)
+            ring[slot, 1, PAD:PAD + W] = np.where(okx, bestX, NEG)
+            ring[slot, 2, PAD:PAD + W] = np.where(oky, bestY, NEG)
             bp[b, d] = (np.where(okm, codeM, 65535)
                         + (np.where(okx, codeX, 255) << 16)
                         + (np.where(oky, codeY, 255) << 24)
@@ -203,5 +209,5 @@ def emulate_fanin(rowf, rowi, colf, coli, tab, fsc, isc, D, W, Gr, PAD,
             if d == L + R - 2:
                 for g in range(Gr):
                     if d - g >= 0:
-                        snap[b, :, g] = ring[(d - g) % Gr, :, PAD:]
+                        snap[b, :, g] = ring[(d - g) % Gr, :, PAD:PAD + W]
     return bp, snap

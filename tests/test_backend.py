@@ -32,9 +32,9 @@ def test_gpu_fills_take_the_kernels(kind):
 
 def test_unknown_platform_raises():
     with pytest.raises(RuntimeError, match="no pairwise DP fill"):
-        fill_impl("linear", device=_dev("tpu"))
+        fill_impl("linear", device=_dev("metal"))
     with pytest.raises(RuntimeError, match="no pairwise DP fill"):
-        backend.host_scan_device(True, device=_dev("rocm"))
+        fill_impl("fanin", overcap=True, device=_dev("rocm"))
 
 
 def test_sharded_and_overcap_fills_take_the_scan_cores():
@@ -45,18 +45,6 @@ def test_sharded_and_overcap_fills_take_the_scan_cores():
     assert fanin_overcap(K_CAP + 1, 2, 2, 2)
     assert fanin_overcap(2, 2, 9, 9)          # bucketed 12 x 12 > 64
     assert not fanin_overcap(K_CAP, K_CAP, 3, 3)
-
-
-def test_host_scan_device(monkeypatch):
-    import jax
-    gpu = _dev("gpu")
-    assert backend.host_scan_device(True, device=_dev("cpu")) is None
-    assert backend.host_scan_device(False, device=gpu) is None
-    monkeypatch.delenv("PAGAN2_HOST_SCAN", raising=False)
-    assert backend.host_scan_device(True, device=gpu) is None
-    monkeypatch.setenv("PAGAN2_HOST_SCAN", "1")
-    assert backend.host_scan_device(True, device=gpu) == \
-        jax.local_devices(backend="cpu")[0]
 
 
 def test_fill_counts_name_implementation_and_platform():
@@ -78,6 +66,23 @@ def test_linear_tiling():
     T, nblk, smem = hopper.linear_tiling(8192, moving=True)
     assert (T, nblk, smem) == (8192, 1, 0)
     assert hopper.linear_tiling(2048, moving=False) == (2048, 1, 1)
+
+
+def test_fanin_fill_rejects_a_receding_window():
+    inp = dict(L=8, R=8, OL=1, OR=1, loff=np.ones((8, 1), np.int32),
+               roff=np.ones((8, 1), np.int32),
+               llw=np.zeros((8, 1)), lopen=np.zeros((8, 1)),
+               rlw=np.zeros((8, 1)), ropen=np.zeros((8, 1)),
+               gext_i=np.zeros(8), gext_j=np.zeros(8),
+               lstates=np.zeros(8, np.int32), rstates=np.zeros(8, np.int32),
+               log_score=np.zeros((4, 4)), lng=0.0, lgo=0.0)
+    ilo = np.zeros(15, np.int32)
+    ilo[5:] = 2
+    ilo[9] = 1
+    with pytest.raises(ValueError, match="never decrease"):
+        hopper.fanin_fill([inp], 8, 8, 1, 1, W=4, ilo=ilo)
+    with pytest.raises(ValueError, match="exceeds"):
+        hopper.fanin_fill([inp], 8, 8, 1, 1, W=16)
 
 
 def test_linear_fill_rejects_a_jumping_window():
@@ -113,6 +118,31 @@ def test_compile_cache_location(monkeypatch):
         jax.config.update("jax_compilation_cache_dir", was)
 
 
+def test_linear_parity_and_readback_on_emulated_kernel(emulated_kernels):
+    import bench
+    r = bench.parity_linear(B=2, N=150)
+    assert r["bp_identical"], r
+    assert r["score_max_rel"] == 0.0, r
+    sec, nbytes = r["readback"]
+    assert nbytes == 2 * (2 * 256 - 1) * 256 and sec >= 0.0   # Lp = 256
+
+
+def test_fanin_band_parity_on_emulated_kernel(emulated_kernels):
+    """The chip's anchored fan-in case at a CPU size: the windowed
+    kernel wrapper equals the windowed scan core, and the single-pair
+    path completes through it."""
+    import bench
+    backend.FILL_COUNTS.clear()
+    r = bench.parity_fanin_band(N=700)
+    assert r["bp_identical"], r
+    assert r["score_max_rel"] == 0.0, r
+    assert np.isfinite(r["path_score"]) and r["path_len"] >= 700
+    assert backend.FILL_COUNTS["kernel@cpu"] >= 1
+    runs = bench.capped_runs(np.random.default_rng(0), 5000)
+    change = np.flatnonzero(runs[1:] != runs[:-1])
+    assert len(runs) == 5000 and np.diff(change).max() <= 4
+
+
 # ----------------------------------------------------------------------
 # the CUDA kernels themselves (skip without a GPU)
 
@@ -126,9 +156,10 @@ def test_kernel_matches_scan_core_on_gpu(gpu, fn):
 
 
 @pytest.mark.gpu
-def test_band_kernel_matches_scan_core_on_gpu(gpu):
+@pytest.mark.parametrize("fn", ["parity_band", "parity_fanin_band"])
+def test_band_kernel_matches_scan_core_on_gpu(gpu, fn):
     import bench
-    r = bench.parity_band(N=20000, p=0.03)
+    r = getattr(bench, fn)(N=20000, p=0.03)
     assert r["bp_identical"], r
     assert r["score_max_rel"] == 0.0, r
 

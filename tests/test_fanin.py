@@ -189,8 +189,9 @@ def test_pallas_fanin_dispatch_matches_scan_and_oracle():
 
 
 def test_pallas_fanin_banded_masks_match_windowed_scan():
-    """Band bounds are honored as masks in the fan-in kernel; the path
-    must equal the windowed scan's banded fill."""
+    """The fan-in kernel fills a band in its window, with the band
+    bounds as masks inside it; the path must equal the windowed scan's
+    banded fill."""
     rng = np.random.default_rng(12)
     mf = ModelFactory(alph.DNA)
     model = mf.alignment_model(0.25)
@@ -217,6 +218,55 @@ def test_pallas_fanin_banded_masks_match_windowed_scan():
                                        band=(upper, lower))
     assert _sig(ppath) == _sig(spath)
     assert pend.score == pytest.approx(send.score, rel=1e-5)
+
+
+def test_fanin_kernel_fills_only_the_band_window(monkeypatch):
+    """An anchored fan-in pair gives the kernel its band window: a
+    D x W backpointer plane with W well below Lp (the memory the
+    windowed scan core needs), not the dense D x Lp plane."""
+    import hopper_emulator
+    from pagan2_tpu.align import hopper
+    from pagan2_tpu.align.viterbi_banded import band_windows
+    from pagan2_tpu.align.viterbi_sheared import _bucket
+    rng = np.random.default_rng(14)
+    model = ModelFactory(alph.DNA).alignment_model(0.25)
+    settings = AlignSettings()
+    base = rng.choice(list("ACGT"), size=400)
+    base[100:105] = "A"
+    base[300:304] = "C"
+    s1 = "".join(base)
+    s2 = s1[:150] + s1[156:]
+
+    def rebuild():
+        return (build_leaf_graph(s1, alph.DNA, mode454=True),
+                build_leaf_graph(s2, alph.DNA, mode454=True))
+
+    ga, gb = rebuild()
+    L, R = ga.num_sites() - 1, gb.num_sites() - 1
+    upper = np.maximum(np.arange(L) - 16, 0).astype(np.int32)
+    lower = np.minimum(np.arange(L) + 16, R - 1).astype(np.int32)
+    spath, send = fanin_align_path(ga, gb, model, settings,
+                                   band=(upper, lower))
+    shapes = []
+
+    def spy(*args):
+        bp, snap = hopper_emulator.emulate_fanin(*args)
+        shapes.append((bp.shape, np.asarray(args[7])))
+        return bp, snap
+
+    ga, gb = rebuild()
+    with kernels_on_cpu():
+        monkeypatch.setattr(hopper, "_call_fanin", spy)
+        ppath, pend = fanin_align_path(ga, gb, model, settings,
+                                       band=(upper, lower))
+    assert _sig(ppath) == _sig(spath)
+    assert pend.score == pytest.approx(send.score, rel=1e-5)
+    (bshape, ilo), = shapes
+    Lp = _bucket(L)
+    ilo_r, Wreal = band_windows(upper, lower, L, R)
+    assert bshape == (1, Lp + _bucket(R) - 1, _bucket(Wreal))
+    assert bshape[2] < Lp // 4
+    assert np.array_equal(ilo[0, :len(ilo_r)], ilo_r)
 
 
 def test_pallas_fanin_batch_executor_matches_single():
